@@ -1,0 +1,248 @@
+"""GoogLeNet / Inception-v1 with 1 input channel, as a PyTorch module.
+
+Port of the JAX package's ``models/googlenet.py`` (reference:
+cnn/archs/googlenet1.py): conv1 takes 1 channel, BasicConv2d =
+conv(bias=False) + BN(eps=0.001) + ReLU, inception branch3 uses
+kernel_size=3 (the torchvision 5x5 "known bug" kept for weight
+compatibility), trunc-normal(std=0.01, a=-2, b=2) init, ceil-mode max
+pools padded with -inf. Layout is NCHW; parameter names are the
+reference's torch names (``inception3a.branch2.1.conv.weight``), so its
+``state_dict`` is the reference checkpoint layout.
+
+This is the inference network: no aux heads, no dropout. Two inference
+transforms mirror the JAX package's: ``fused=True`` runs each inception
+block's three parallel 1x1 convs as one wide conv named ``fused0``, and
+``folded=True`` folds each BatchNorm into its conv's weight and bias
+(:func:`fold_inference`).
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["GoogLeNet", "CAMPAIGN_NORM", "fuse_state_dict",
+           "fold_state_dict", "fold_inference"]
+
+#: per-campaign normalization constants
+#: (reference: cnn/cnn_pred_pipeline.py:126-157)
+CAMPAIGN_NORM = {
+    "COVID_QC": (110.6390, 183.9152),
+    "CalCH4_v8": (140.6399, 237.5434),
+    "Permian_QC": (100.2635, 158.7060),
+    "multi_256": (115.0, 190.0),
+    "multi_64": (115.0, 190.0),
+}
+
+BN_EPS = 1e-3
+
+
+def _ceil_maxpool(x, window: int, stride: int):
+    """MaxPool2d(window, stride, ceil_mode=True) in NCHW: pad the
+    bottom/right with -inf so the last window may start inside the input,
+    then pool without padding."""
+    h, w = x.shape[2], x.shape[3]
+    out_h = -(-(h - window) // stride) + 1
+    out_w = -(-(w - window) // stride) + 1
+    pad_h = max(0, (out_h - 1) * stride + window - h)
+    pad_w = max(0, (out_w - 1) * stride + window - w)
+    if pad_h or pad_w:
+        x = F.pad(x, (0, pad_w, 0, pad_h), value=-float("inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+class BasicConv2d(nn.Module):
+    """conv(bias=False) + BatchNorm(eps=1e-3) + ReLU, or, folded,
+    conv(bias) + ReLU (reference: googlenet1.py:266-275)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 1,
+                 stride: int = 1, padding: int = 0, folded: bool = False):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel_size, stride, padding,
+                              bias=folded)
+        self.bn = None if folded else nn.BatchNorm2d(cout, eps=BN_EPS)
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return F.relu(x)
+
+
+class Inception(nn.Module):
+    """Four-branch inception block (reference: googlenet1.py:184-228).
+
+    ``fused=True`` holds branch1, branch2.0 and branch3.0 (three 1x1 convs
+    over the same input) as one conv ``fused0`` whose output channels are
+    their concatenation; ``branch2.0``/``branch3.0`` become identities so
+    the remaining parameter names stay those of the reference."""
+
+    def __init__(self, cin, ch1x1, ch3x3red, ch3x3, ch5x5red, ch5x5,
+                 pool_proj, fused: bool = False, folded: bool = False):
+        super().__init__()
+        conv = partial(BasicConv2d, folded=folded)
+        self.fused = fused
+        self.splits = (ch1x1, ch3x3red, ch5x5red)
+        if fused:
+            self.fused0 = conv(cin, ch1x1 + ch3x3red + ch5x5red, 1)
+            first2, first3 = nn.Identity(), nn.Identity()
+        else:
+            self.branch1 = conv(cin, ch1x1, 1)
+            first2, first3 = conv(cin, ch3x3red, 1), conv(cin, ch5x5red, 1)
+        self.branch2 = nn.Sequential(first2, conv(ch3x3red, ch3x3, 3, padding=1))
+        # kernel 3 (not 5): torchvision weight-compat quirk
+        self.branch3 = nn.Sequential(first3, conv(ch5x5red, ch5x5, 3, padding=1))
+        self.branch4 = nn.Sequential(nn.MaxPool2d(3, stride=1, padding=1),
+                                     conv(cin, pool_proj, 1))
+
+    def forward(self, x):
+        if self.fused:
+            b1, b2, b3 = torch.split(self.fused0(x), self.splits, dim=1)
+        else:
+            b1, b2, b3 = self.branch1(x), x, x
+        b2 = self.branch2(b2)
+        b3 = self.branch3(b3)
+        b4 = self.branch4(x)
+        return torch.cat([b1, b2, b3, b4], dim=1)
+
+
+class GoogLeNet(nn.Module):
+    """1-channel GoogLeNet (reference: googlenet1.py:27-163), NCHW.
+
+    ``forward(x, stage=k)`` computes only stride-2 trunk stage ``k`` on
+    already-computed features — the phase-deduplicated FCN path drives the
+    stages one by one. Stage boundaries are the downsampling ops:
+    1: conv1 | 2: maxpool1+conv2+conv3 | 3: maxpool2+inception3 |
+    4: maxpool3+inception4 | 5: maxpool4+inception5.
+    ``features_only=True`` returns the inception5b output; otherwise the
+    global-average-pooled logits.
+    """
+
+    def __init__(self, num_classes: int = 2, fused: bool = False,
+                 folded: bool = False, generator: torch.Generator | None = None):
+        super().__init__()
+        conv = partial(BasicConv2d, folded=folded)
+        inc = partial(Inception, fused=fused, folded=folded)
+        self.fused, self.folded = fused, folded
+        self.num_classes = num_classes
+        self.conv1 = conv(1, 64, 7, stride=2, padding=3)
+        self.conv2 = conv(64, 64, 1)
+        self.conv3 = conv(64, 192, 3, padding=1)
+        self.inception3a = inc(192, 64, 96, 128, 16, 32, 32)
+        self.inception3b = inc(256, 128, 128, 192, 32, 96, 64)
+        self.inception4a = inc(480, 192, 96, 208, 16, 48, 64)
+        self.inception4b = inc(512, 160, 112, 224, 24, 64, 64)
+        self.inception4c = inc(512, 128, 128, 256, 24, 64, 64)
+        self.inception4d = inc(512, 112, 144, 288, 32, 64, 64)
+        self.inception4e = inc(528, 256, 160, 320, 32, 128, 128)
+        self.inception5a = inc(832, 256, 160, 320, 32, 128, 128)
+        self.inception5b = inc(832, 384, 192, 384, 48, 128, 128)
+        self.fc = nn.Linear(1024, num_classes)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """trunc_normal(std=0.01, a=-2, b=2) for conv and linear weights,
+        zero biases, BatchNorm identity (reference: googlenet1.py:94-100)."""
+        for mod in self.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                nn.init.trunc_normal_(mod.weight, std=0.01, a=-2.0, b=2.0,
+                                      generator=generator)
+                if mod.bias is not None:
+                    nn.init.zeros_(mod.bias)
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.reset_parameters()
+
+    def forward(self, x, stage: int | None = None, features_only: bool = False):
+        if stage in (None, 1):
+            x = self.conv1(x)
+            if stage == 1:
+                return x
+        if stage in (None, 2):
+            x = _ceil_maxpool(x, 3, 2)
+            x = self.conv3(self.conv2(x))
+            if stage == 2:
+                return x
+        if stage in (None, 3):
+            x = _ceil_maxpool(x, 3, 2)
+            x = self.inception3b(self.inception3a(x))
+            if stage == 3:
+                return x
+        if stage in (None, 4):
+            x = _ceil_maxpool(x, 3, 2)
+            for blk in (self.inception4a, self.inception4b, self.inception4c,
+                        self.inception4d, self.inception4e):
+                x = blk(x)
+            if stage == 4:
+                return x
+        if stage in (None, 5):
+            x = _ceil_maxpool(x, 2, 2)
+            x = self.inception5b(self.inception5a(x))
+            if stage == 5:
+                return x
+        if features_only:
+            return x
+        return self.fc(x.mean(dim=(2, 3)))
+
+
+_FUSED_BRANCHES = ("branch1", "branch2.0", "branch3.0")
+
+
+def fuse_state_dict(sd):
+    """Canonical state_dict -> the ``fused=True`` layout: in every
+    inception block the branch1/branch2.0/branch3.0 conv and BN tensors
+    are concatenated along the output-channel axis into ``fused0``.
+    Per-channel math is unchanged. Pure numpy."""
+    out = {}
+    blocks = sorted({k.split(".")[0] for k in sd if ".branch2.0." in k})
+    for k, v in sd.items():
+        if not any(k.startswith(f"{b}.{br}.") for b in blocks
+                   for br in _FUSED_BRANCHES):
+            out[k] = v
+    for b in blocks:
+        for leaf in sorted({k[len(f"{b}.branch1."):] for k in sd
+                            if k.startswith(f"{b}.branch1.")}):
+            parts = [np.asarray(sd[f"{b}.{br}.{leaf}"]) for br in _FUSED_BRANCHES]
+            out[f"{b}.fused0.{leaf}"] = (parts[0] if parts[0].ndim == 0
+                                         else np.concatenate(parts, axis=0))
+    return out
+
+
+def fold_state_dict(sd, eps: float = BN_EPS):
+    """conv(bias=False) + BN(affine, running stats) -> conv(weight', bias')
+    for every BasicConv2d: weight' = weight * scale/sqrt(var+eps) per
+    output channel, bias' = bias_bn - mean*scale/sqrt(var+eps), in f32;
+    the BatchNorm entries disappear. Pure numpy."""
+    out = {k: v for k, v in sd.items() if ".bn." not in k}
+    for k in sd:
+        if not k.endswith(".bn.weight"):
+            continue
+        p = k[:-len(".bn.weight")]
+        w = np.asarray(sd[f"{p}.conv.weight"])
+        inv = (np.asarray(sd[f"{p}.bn.weight"], np.float32)
+               / np.sqrt(np.asarray(sd[f"{p}.bn.running_var"], np.float32) + eps))
+        out[f"{p}.conv.weight"] = (np.asarray(w, np.float32)
+                                   * inv[:, None, None, None]).astype(w.dtype)
+        out[f"{p}.conv.bias"] = (np.asarray(sd[f"{p}.bn.bias"], np.float32)
+                                 - np.asarray(sd[f"{p}.bn.running_mean"],
+                                              np.float32) * inv).astype(w.dtype)
+    return out
+
+
+def fold_inference(model: GoogLeNet) -> GoogLeNet:
+    """Canonical model -> the inference model with fused 1x1 convs and
+    BatchNorm folded into the conv weights (:func:`fuse_state_dict`,
+    :func:`fold_state_dict`), on the same device and dtype, in eval mode."""
+    p = next(model.parameters())
+    sd = {k: v.detach().float().cpu().numpy()
+          for k, v in model.state_dict().items()
+          if not k.endswith("num_batches_tracked")}
+    folded = fold_state_dict(fuse_state_dict(sd))
+    out = GoogLeNet(num_classes=model.num_classes, fused=True, folded=True)
+    out.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                         for k, v in folded.items()})
+    return out.to(device=p.device, dtype=p.dtype).eval()
