@@ -6,8 +6,8 @@
 needs one CUDA device and the CUDA toolkit (nvcc). Phases:
 
 1. Device and build: print the card's name and power limit, build the
-   port's CUDA kernels from srcfinder_torch/ops/csrc (one nvcc each, all
-   started together).
+   port's CUDA kernels from srcfinder_torch/ops/csrc (one nvcc for each
+   source, all started together).
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes of one full-scene CMF column chunk (2801 lines x 256 columns x
    72 active bands, 201 alphas), in float32 and float64, on inputs made
@@ -23,6 +23,28 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    ppm*m above background, saliency in [0, 1] with nodata stamped, plume
    list and IME CSV written) and prints stage seconds and peak device
    memory.
+4. The exact dense CNN's trunk kernels (fused_stage12, trunk_s23,
+   trunk_s45) against their plain versions, on windows of 256 x 256
+   gathered from a 16-line strip cut through the plume of the scene's CMF
+   ppm*m band and preprocessed: 512 windows in float32 and bfloat16, and
+   trunk_s23 / trunk_s45 at the CLI's own configuration (bfloat16, 4096
+   windows, where trunk_s23 runs as sub-batches). The segment inputs are
+   the plain route's own intermediates. GoogLeNet weights are
+   "trained-like" (conv and fc std sqrt(1 / fan_in), BatchNorm perturbed;
+   torch.Generator seed 256), so activations stay O(1). Prints errors,
+   kernel / plain / cuDNN-model times (CUDA events) and each kernel's
+   bound.
+5. The exact path on that strip (16 lines x 598 samples = 9,568 windows;
+   only the scene's line count is cut, the window, the model's widths and
+   the batches are real): srcfinder_torch.detect.cnn_cli at its defaults
+   (bfloat16, trunk "segments", batch 4096; the main path), held within
+   CLI_TOL of the plain route in bfloat16 at batch 4096; then
+   cnn_saliency_image in float32 with each trunk route at batch 512 and
+   with "segments" at batch 4096 (kernel routes must agree with "plain"
+   within 1e-5 in probability), then the fast method. Each run zeroes the
+   launch counters just before and reads them just after, and must have
+   launched exactly its route's trunk kernels. Prints seconds, windows/s,
+   peak device memory, launches and a full-scene projection for each run.
 
 Any failed phase exits non-zero without the result line. The last line
 of standard output is {"ok": true, "device": {...}}.
@@ -46,10 +68,38 @@ L, C, B, A = 2801, 256, 72, 201
 SCENE = (2801, 598, 425)          # lines, samples, bands
 PLUME = (slice(1380, 1420), slice(290, 310))
 # H100 SXM data sheet: f32 outside the tensor cores (TF32 is not full
-# precision); f64 on the FP64 tensor cores (DMMA), which are full IEEE f64
-PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+# precision); f64 on the FP64 tensor cores (DMMA), which are full IEEE f64;
+# bf16 on the tensor cores (dense)
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12                                # H100 SXM HBM3
 TOL = {"float32": 1e-5, "float64": 1e-12}           # max |err| / max |ref|
+# exact dense CNN: window side, windows per trunk-kernel comparison, strip
+# lines, and the trunk kernels' ceilings (max |err| / max |ref|): f32 allows
+# for up to 14 stacked convolutions summed in another order (measured
+# 1.0e-6 on the H100), bf16 for one-ulp flips at each rounding point
+# (measured 8.3e-3)
+WIN, STRIP_LINES = 256, 16
+TRUNK_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+TRUNK_KERNELS = ("fused_stage12", "trunk_s23", "trunk_s45")
+# (dtype, windows, kernels) of the trunk-kernel comparisons: 512 windows in
+# both dtypes, and the CLI's own configuration (bf16, batch 4096), where
+# trunk_s23 runs as three sub-batches of its scratch budget
+TRUNK_CONFIGS = (("float32", 512, TRUNK_KERNELS), ("bfloat16", 512, TRUNK_KERNELS),
+                 ("bfloat16", 4096, ("trunk_s23", "trunk_s45")))
+# the trunk kernels each route launches
+ROUTE_KERNELS = {"segments": ("trunk_s23", "trunk_s45"),
+                 "stage12": ("fused_stage12", "trunk_s45"), "plain": ()}
+# the run of the exact-CNN phase whose launches a kernel reports: the
+# CLI's default path, and for fused_stage12 (on no default path) the
+# stage12 route
+KERNEL_RUN = {"fused_stage12": "f32_stage12_b512", "trunk_s23": "cli_bf16_segments_b4096",
+              "trunk_s45": "cli_bf16_segments_b4096"}
+ROUTE_TOL = 1e-5                   # kernel route vs plain route, probability
+# the CLI (bf16 kernels) vs the plain route in bf16 at the same batch, in
+# probability: each is a bf16 rounding of the same f32 forward, and the
+# CLI was measured 3.5e-3 from the f32 plain route, so two such roundings
+# lie within 7e-3 of each other
+CLI_TOL = 1e-2
 
 
 def fail(msg):
@@ -70,9 +120,13 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)I([fd])", m.group(1))
-            name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}>"
-                    if k else m.group(1))
+            k = re.search(r"\d+([a-z_]+_kernel)I(\w+)", m.group(1))
+            name = m.group(1)
+            if k:
+                args = k.group(2)
+                t = ("bf16" if "bfloat16" in args
+                     else {"f": "float", "d": "double"}.get(args[0], args))
+                name = f"{k.group(1)}<{t}{', pool' if 'Lb1E' in args else ''}>"
         elif name and ("spill" in line or "Used" in line):
             out.setdefault(name, []).append(line.split(" : ")[-1].strip())
     return out
@@ -300,8 +354,8 @@ def phase_main_path(workdir):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    moments.KERNEL.launches = 0
-    loo.KERNEL.launches = 0
+    moments.KERNEL.reset()
+    loo.KERNEL.reset()
     t0 = time.time()
     prods = run_flightline(rdn, libf, wf, os.path.join(workdir, "out"),
                            prob_thr=0.0, do_ime=True, device="cuda",
@@ -351,20 +405,44 @@ def phase_main_path(workdir):
                    ime_rows=len(ime))
     print(json.dumps({"main_path": summary}))
     profile_stages(rdn, libf, wf, prods["cmf"], workdir)
-    return launches
+    return launches, prods["cmf"]
 
 
 _PROFILER_MARKERS = ("Buffer Flush", "Activity Buffer Request")
 
 
-def profile_stages(rdn, libf, wf, cmf_product, workdir):
-    """Second, profiled pass over the same scene, one profile per device
-    stage (CMF, FCN): wall time, device-busy time (sum of kernel and copy
-    time), idle share and the busiest device functions."""
-    import numpy as np
+def device_profile(fn):
+    """One profiled call of ``fn()``: wall time, device-busy time (sum of
+    kernel and copy time), idle share, peak memory and the busiest device
+    functions."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    # device-side events only (kernels and copies), summed per name; the
+    # CUPTI buffer markers are the profiler's own overhead
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.name in _PROFILER_MARKERS:
+            continue
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    rows = sorted(((k[:90], t, n) for k, (t, n) in by_name.items()), key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(), top=rows[:12])
+
+
+def profile_stages(rdn, libf, wf, cmf_product, workdir):
+    """Second, profiled pass over the same scene, one profile per device
+    stage (CMF, FCN)."""
+    import numpy as np
     from srcfinder_torch.cmf.pipeline import robust_mf_image
     from srcfinder_torch.core.envi import open_envi
     from srcfinder_torch.detect.fcn_pipeline import (fcn_saliency_image,
@@ -379,31 +457,307 @@ def profile_stages(rdn, libf, wf, cmf_product, workdir):
     def fcn():
         fcn_saliency_image(band, model, device="cuda").cpu()
 
-    out = {}
-    for name, fn in (("cmf", cmf), ("fcn", fcn)):
+    out = {name: device_profile(fn) for name, fn in (("cmf", cmf), ("fcn", fcn))}
+    print(json.dumps({"profile": out}))
+
+
+def write_cnn_weights(workdir):
+    """GoogLeNet weights that keep the trunk's activations O(1): conv and
+    fc std sqrt(1 / fan_in), BatchNorm affine and running stats perturbed
+    as after training (the default init's std 0.01 collapses activations
+    towards 0 and every probability towards 0.5, where a kernel's
+    agreement with its plain version would prove little)."""
+    import torch
+    from torch import nn
+    from srcfinder_torch.models.convert import save_weights, torch_state_dict_to_flax
+    from srcfinder_torch.models.googlenet import GoogLeNet
+    gen = torch.Generator().manual_seed(256)
+    model = GoogLeNet(num_classes=2, generator=gen)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                mod.weight.normal_(0.0, mod.weight[0].numel() ** -0.5, generator=gen)
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.weight.uniform_(0.5, 1.5, generator=gen)
+                mod.bias.normal_(0.0, 0.2, generator=gen)
+                mod.running_mean.normal_(0.0, 0.2, generator=gen)
+                mod.running_var.uniform_(0.5, 1.5, generator=gen)
+    wf = os.path.join(workdir, "googlenet_trained_like.npz")
+    save_weights(wf, torch_state_dict_to_flax(model.state_dict()))
+    return wf
+
+
+def write_strip(workdir, cmf_product):
+    """One-band ENVI strip of STRIP_LINES lines through the plume of the
+    scene's CMF ppm*m band, with three nodata pixels."""
+    import numpy as np
+    from srcfinder_torch.core.envi import open_envi, save_envi
+    r0 = (PLUME[0].start + PLUME[0].stop - STRIP_LINES) // 2
+    strip = np.array(open_envi(cmf_product).load()[r0:r0 + STRIP_LINES, :, 3])
+    strip[0, :3] = -9999.0
+    path = os.path.join(workdir, "ang20200924t211102_ch4mf_strip")
+    save_envi(path + ".hdr", strip[:, :, None],
+              metadata={"data ignore value": -9999, "map info": [
+                  "UTM", "1", "1", "272247.15", "3992010.65", "3.1", "3.1", "11",
+                  "North", "WGS-84", "units=Meters", "rotation=0"]})
+    return path
+
+
+def _conv_count(n, h, cin, cout, k, s=1):
+    """(operations, output side, weight elements) of a conv + bias + ReLU:
+    2 per multiply-add, 2 per output for bias and ReLU."""
+    ho = (h + 2 * (k // 2) - k) // s + 1
+    return 2 * n * ho * ho * cout * (k * k * cin + 1), ho, k * k * cin * cout + cout
+
+
+def _pool_count(n, h, c, k, s):
+    """(comparisons, output side) of a k x k max pool (ceil mode)."""
+    ho = (h - k + s - 1) // s + 1 if s > 1 else h
+    return n * ho * ho * c * k * k, ho
+
+
+def _inception_count(n, h, plan):
+    from srcfinder_torch.ops.trunk_fuse import _INCEPTION, _cin
+    ch1, red3, ch3, red5, ch5, proj = _INCEPTION[plan]
+    cin = _cin(plan)
+    parts = [_conv_count(n, h, cin, ch1 + red3 + red5, 1),
+             _conv_count(n, h, red3, ch3, 3), _conv_count(n, h, red5, ch5, 3),
+             _conv_count(n, h, cin, proj, 1)]
+    return (sum(p[0] for p in parts) + _pool_count(n, h, cin, 3, 1)[0],
+            sum(p[2] for p in parts), ch1 + ch3 + ch5 + proj)
+
+
+def trunk_work(name, n, d):
+    """Operations and element counts (input, output, weights) of one
+    trunk kernel over n windows of side d, from the layer shapes."""
+    from srcfinder_torch.ops.trunk_fuse import _BLOCKS
+    ops = wts = 0
+    if name == "fused_stage12":
+        o1, h, w1 = _conv_count(n, d, 1, 64, 7, 2)
+        p1, h = _pool_count(n, h, 64, 3, 2)
+        o2, _, w2 = _conv_count(n, h, 64, 64, 1)
+        o3, _, w3 = _conv_count(n, h, 64, 192, 3)
+        p2, h = _pool_count(n, h, 192, 3, 2)
+        return o1 + p1 + o2 + o3 + p2, n * d * d, n * h * h * 192, w1 + w2 + w3
+    if name == "trunk_s23":
+        h_in = h = d // 2
+        p1, h = _pool_count(n, h, 64, 3, 2)
+        o2, _, w2 = _conv_count(n, h, 64, 64, 1)
+        o3, _, w3 = _conv_count(n, h, 64, 192, 3)
+        p2, h = _pool_count(n, h, 192, 3, 2)
+        ops, wts, c = p1 + o2 + o3 + p2, w2 + w3, 192
+        for blk in _BLOCKS["s23"]:
+            o, w, c = _inception_count(n, h, blk)
+            ops, wts = ops + o, wts + w
+        p3, h = _pool_count(n, h, c, 3, 2)
+        return ops + p3, n * h_in * h_in * 64, n * h * h * c, wts
+    g = h = d // 16
+    for i, blk in enumerate(_BLOCKS["s45"]):
+        if i == 5:
+            p4, h = _pool_count(n, h, 832, 2, 2)
+            ops += p4
+        o, w, c = _inception_count(n, h, blk)
+        ops, wts = ops + o, wts + w
+    return ops + n * h * h * c, n * g * g * 480, n * 1024, wts
+
+
+def phase_trunk_kernels(strip, wf):
+    """fused_stage12, trunk_s23 and trunk_s45 against their plain versions
+    in each of TRUNK_CONFIGS, on windows of the preprocessed strip; weights
+    packed once, as the window loop passes them."""
+    import numpy as np
+    import torch
+    from srcfinder_torch.core.envi import open_envi
+    from srcfinder_torch.detect.cnn_pipeline import reference_pad
+    from srcfinder_torch.detect.preprocess import norm_for_model, preprocess_ch4
+    from srcfinder_torch.device import resolve_device
+    from srcfinder_torch.models.convert import load_weights
+    from srcfinder_torch.models.googlenet import GoogLeNet, _ceil_maxpool, fold_inference
+    from srcfinder_torch.ops import trunk_fuse as tf
+
+    resolve_device("cuda")                     # TF32 off for the cuDNN sides
+    band = torch.tensor(np.asarray(open_envi(strip).read_band(0), np.float32),
+                        device="cuda")
+    x = preprocess_ch4(band, *norm_for_model("COVID_QC"))
+    padded = reference_pad(x, WIN).unfold(0, WIN, 1).unfold(1, WIN, 1)
+    model = GoogLeNet(num_classes=2)
+    model.load_state_dict(load_weights(wf))
+    model32 = fold_inference(model.eval()).cuda()
+
+    def nhwc(t):
+        return t.permute(0, 2, 3, 1).contiguous()
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2).contiguous()
+
+    results = {}
+    for dname, n, names in TRUNK_CONFIGS:
+        dtype = getattr(torch, dname)
+        m = model32.to(dtype)      # in place: TRUNK_CONFIGS runs float32 first
+        sd = m.state_dict()
+        idx = torch.linspace(0, x.numel() - 1, n, device="cuda").long()
+        wins = padded[idx // x.shape[1], idx % x.shape[1]].contiguous().to(dtype)
+        params = {"fused_stage12": tf.pack_params("fused_stage12", tf.stage12_params(sd)),
+                  "trunk_s23": tf.pack_params("trunk_s23", tf.trunk_segment_params(sd, "s23")),
+                  "trunk_s45": tf.pack_params("trunk_s45", tf.trunk_segment_params(sd, "s45"))}
+        with torch.no_grad():
+            c1 = nhwc(m(wins[:, None], stage=1))
+            x23 = tf.trunk_s23_ref(c1, params["trunk_s23"])
+        cases = {
+            "fused_stage12": (tf.fused_stage12, tf.fused_stage12_ref, wins[..., None].contiguous(),
+                              lambda t: nhwc(_ceil_maxpool(m(m(nchw(t), stage=1), stage=2), 3, 2))),
+            "trunk_s23": (tf.trunk_s23, tf.trunk_s23_ref, c1,
+                          lambda t: nhwc(_ceil_maxpool(m(m(nchw(t), stage=2), stage=3), 3, 2))),
+            "trunk_s45": (tf.trunk_s45, tf.trunk_s45_ref, x23,
+                          lambda t: m(m(nchw(t), stage=4, start_stage=4, start_pooled=True),
+                                      stage=5, start_stage=5).mean(dim=(2, 3)))}
+        s = torch.finfo(dtype).bits // 8
+        tag = f"{dname}_b{n}"
+        for name in names:
+            kern, plain, inp, library = cases[name]
+            p = params[name]
+            with torch.no_grad():
+                got = kern(inp, p)
+                torch.cuda.synchronize()
+                ref = plain(inp, p)
+                ref_max = ref.float().abs().max().item()
+                abs_err = (got.float() - ref.float()).abs().max().item()
+                k = dict(max_abs_err=abs_err, max_rel_err=abs_err / ref_max,
+                         ref_max=ref_max, tol=TRUNK_TOL[dname],
+                         ms=cuda_ms(lambda: kern(inp, p), reps=3),
+                         plain_ms=cuda_ms(lambda: plain(inp, p), reps=3),
+                         library_ms=cuda_ms(lambda: library(inp), reps=3))
+                del got, ref
+            ops, n_in, n_out, n_w = trunk_work(name, n, WIN)
+            k["ops"], k["bytes"] = ops, s * (n_in + n_out + n_w)
+            t_bytes = k["bytes"] / PEAK_BYTES * 1e3
+            t_ops = ops / PEAK_FLOPS[dname] * 1e3
+            k["bound_ms"] = max(t_bytes, t_ops)
+            k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            if not k["max_rel_err"] <= TRUNK_TOL[dname]:
+                fail(f"{name} {tag}: relative error {k['max_rel_err']:.3g} "
+                     f"> {TRUNK_TOL[dname]:g}")
+            results[(name, tag)] = k
+        del c1, x23, cases, wins, params
+        torch.cuda.empty_cache()
+    print(json.dumps({"trunk_kernels": {f"{n} {t}": v for (n, t), v in results.items()},
+                      "window": WIN}))
+    return results
+
+
+def phase_exact_cnn(workdir, strip, wf):
+    """The exact dense CNN on the strip: the CLI at its defaults (the main
+    path) and the plain route in its configuration, each trunk route in
+    f32, the segments route at the CLI's batch in f32, the fast method.
+    Each run zeroes the trunk kernels' launch counters just before and
+    reads them just after. Returns {kernel: (run, launches)} from the run
+    of each kernel's path (KERNEL_RUN)."""
+    import numpy as np
+    import torch
+    from srcfinder_torch.core.envi import open_envi
+    from srcfinder_torch.detect import cnn_cli
+    from srcfinder_torch.detect.cnn_pipeline import TRUNKS, cnn_saliency_image
+    from srcfinder_torch.models.convert import load_weights
+    from srcfinder_torch.models.googlenet import GoogLeNet
+    from srcfinder_torch.ops import trunk_fuse
+
+    band = np.asarray(open_envi(strip).read_band(0), np.float32)
+    nodata = band == -9999.0
+    n_win = band.size
+    model = GoogLeNet(num_classes=2)
+    model.load_state_dict(load_weights(wf))
+    out = os.path.join(workdir, "cnn_out")
+    bf16 = torch.bfloat16
+
+    def check(sal, what):
+        if sal.shape != band.shape or not (sal[nodata] == -9999.0).all():
+            fail(f"{what}: shape {sal.shape} or nodata stamp")
+        v = sal[~nodata]
+        if not (np.isfinite(v).all() and (v >= 0).all() and (v <= 1).all()):
+            fail(f"{what}: saliency not finite in [0, 1]")
+
+    def saliency(**kw):
+        return cnn_saliency_image(band, model, device="cuda", **kw).cpu().numpy()
+
+    # warm-up on one line, at each configuration's batch (the tail batch is
+    # padded to full size): cuDNN start-up and algorithm choice, first
+    # launches; outside the counted runs
+    for trunk in TRUNKS:
+        cnn_saliency_image(band[:1], model, trunk=trunk, device="cuda")
+    for trunk in ("segments", "plain"):
+        cnn_saliency_image(band[:1], model, batch=4096, dtype=bf16, trunk=trunk,
+                           device="cuda")
+    cnn_saliency_image(band[:1], model, batch=4096, device="cuda")
+    torch.cuda.synchronize()
+
+    stats, sals = {}, {}
+
+    def run(tag, fn, trunk):
+        """``fn()`` with the launch counters zeroed just before and read
+        just after; the kernels that launched must be those of ``trunk``."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.time() - t0) * 1e3
-        # device-side events only (kernels and copies), summed per name;
-        # the CUPTI buffer markers are the profiler's own overhead
-        by_name = {}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA or e.name in _PROFILER_MARKERS:
-                continue
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
-        rows = sorted(((k[:90], t, n) for k, (t, n) in by_name.items()),
-                      key=lambda r: -r[1])
-        busy_ms = sum(r[1] for r in rows)
-        out[name] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                         idle_share=1.0 - busy_ms / wall_ms,
-                         peak_mem_bytes=torch.cuda.max_memory_allocated(),
-                         top=rows[:12])
-    print(json.dumps({"profile": out}))
+        trunk_fuse.KERNEL.reset()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        s = time.time() - t0
+        counts = {k: trunk_fuse.launches(k) for k in TRUNK_KERNELS}
+        stats[tag] = dict(s=s, windows_per_s=n_win / s,
+                          peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                          projected_full_scene_s=s * SCENE[0] / STRIP_LINES,
+                          launches=counts)
+        launched = sorted(k for k, c in counts.items() if c > 0)
+        if launched != sorted(ROUTE_KERNELS[trunk]):
+            fail(f"{tag}: launched {launched}, trunk {trunk} launches "
+                 f"{sorted(ROUTE_KERNELS[trunk])}")
+        return res
+
+    rc = run(KERNEL_RUN["trunk_s23"],
+             lambda: cnn_cli.main([strip, "-n", "1", "-w", wf, "-o", out]), "segments")
+    if rc != 0:
+        fail(f"cnn_cli exited {rc}")
+    cli_sal = open_envi(os.path.join(out, os.path.basename(strip) + "_saliency")).load()[..., 0]
+    check(cli_sal, "cnn_cli")
+    sals["bf16_plain_b4096"] = run("bf16_plain_b4096", lambda: saliency(
+        batch=4096, dtype=bf16, trunk="plain"), "plain")
+    for trunk in TRUNKS:
+        sals[f"f32_{trunk}_b512"] = run(f"f32_{trunk}_b512", lambda: saliency(
+            batch=512, trunk=trunk), trunk)
+    sals["f32_segments_b4096"] = run("f32_segments_b4096", lambda: saliency(
+        batch=4096), "segments")
+    sals["f32_fast"] = run("f32_fast", lambda: saliency(method="fast"), "plain")
+    for tag, sal in sals.items():
+        check(sal, tag)
+
+    # where the time goes: one profiled pass of the default route in f32
+    # and of the CLI's configuration (bf16, batch 4096)
+    profiles = {
+        "f32_segments_b512": device_profile(lambda: saliency(batch=512)),
+        "bf16_segments_b4096": device_profile(lambda: saliency(batch=4096, dtype=bf16))}
+    valid = ~nodata
+
+    def diff(a, b):
+        return float(np.abs(a[valid] - b[valid]).max())
+    plain = sals["f32_plain_b512"]
+    diffs = {t: diff(sals[t], plain)
+             for t in ("f32_segments_b512", "f32_stage12_b512", "f32_segments_b4096")}
+    cli_diff = diff(cli_sal, sals["bf16_plain_b4096"])
+    print(json.dumps({"exact_cnn": dict(
+        strip=[STRIP_LINES, band.shape[1]], windows=n_win, stats=stats,
+        route_vs_plain_max_abs=diffs, cli_vs_bf16_plain_b4096_max_abs=cli_diff,
+        cli_tol=CLI_TOL, cli_bf16_vs_f32_plain_max_abs=diff(cli_sal, plain),
+        fast_vs_exact_max_abs=diff(sals["f32_fast"], plain),
+        saliency=dict(min=float(plain[valid].min()), max=float(plain[valid].max()),
+                      std=float(plain[valid].std())),
+        profile=profiles)}))
+    for t, d in diffs.items():
+        if not d <= ROUTE_TOL:
+            fail(f"{t} differs from the plain route by {d:.3g} > {ROUTE_TOL:g}")
+    if not cli_diff <= CLI_TOL:
+        fail(f"cnn_cli differs from the bf16 plain route at batch 4096 by "
+             f"{cli_diff:.3g} > {CLI_TOL:g}")
+    return {k: (r, stats[r]["launches"][k]) for k, r in KERNEL_RUN.items()}
 
 
 def main():
@@ -418,11 +772,12 @@ def main():
     print(json.dumps({"python": sys.version.split()[0], "torch": torch.__version__,
                       "cuda": torch.version.cuda}))
 
-    from srcfinder_torch.ops import build, loo, moments
+    from srcfinder_torch.ops import build, loo, moments, trunk_fuse
+    built = (moments.KERNEL, loo.KERNEL, trunk_fuse.KERNEL)
     t0 = time.time()
-    build.build_all([moments.KERNEL, loo.KERNEL])
+    build.build_all(built)
     print(json.dumps({"build_s": time.time() - t0, "ptxas": {
-        k.name: ptxas_summary(k.build_log()) for k in (moments.KERNEL, loo.KERNEL)}}))
+        k.name: ptxas_summary(k.build_log()) for k in built}}))
 
     checks = phase_kernels()
 
@@ -430,7 +785,12 @@ def main():
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
-        launches = phase_main_path(workdir)
+        flightline, cmf_product = phase_main_path(workdir)
+        launches = {k: ("run_flightline", n) for k, n in flightline.items()}
+        strip = write_strip(workdir, cmf_product)
+        cnn_weights = write_cnn_weights(workdir)
+        checks.update(phase_trunk_kernels(strip, cnn_weights))
+        launches.update(phase_exact_cnn(workdir, strip, cnn_weights))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -439,17 +799,36 @@ def main():
                                "(JAX package, git f6215a7)"),
             "loo_sweep": ("srcfinder_torch/ops/csrc/loo.cu",
                           "cmf/matched_filter.py:147 _loo_nll (JAX package; "
-                          "XLA-fused, no Pallas kernel)")}
+                          "XLA-fused, no Pallas kernel)"),
+            "fused_stage12": ("srcfinder_torch/ops/csrc/trunk.cu",
+                              "ops/trunk_fuse.py:173 fused_stage12 -> pl.pallas_call "
+                              ":195 (JAX package, git be3cd8d)"),
+            "trunk_s23": ("srcfinder_torch/ops/csrc/trunk.cu",
+                          "ops/trunk_fuse.py:258 fused_trunk_segment('s23') -> "
+                          "pl.pallas_call :284 (JAX package, git ca79403)"),
+            "trunk_s45": ("srcfinder_torch/ops/csrc/trunk.cu",
+                          "ops/trunk_fuse.py:258 fused_trunk_segment('s45') -> "
+                          "pl.pallas_call :284 (JAX package, git ca79403)")}
     keys = ("max_abs_err", "max_rel_err", "tol", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    # each kernel's configurations: the first is the one its path runs
+    # (the flightline's f32 CMF; the CLI's bf16 batch of 4096 windows; the
+    # stage12 route's f32 batch of 512), top level in the line; the others
+    # (the CMF's cond-gated f64 recompute, 512-window batches) nested
+    configs = {"masked_moments": ("float32", "float64"),
+               "loo_sweep": ("float32", "float64"),
+               "fused_stage12": ("float32_b512", "bfloat16_b512"),
+               "trunk_s23": ("bfloat16_b4096", "float32_b512", "bfloat16_b512"),
+               "trunk_s45": ("bfloat16_b4096", "float32_b512", "bfloat16_b512")}
     kernels = []
     for kname, (src, rep) in meta.items():
-        # top level: float32, the main path's precision; "float64": the
-        # same numbers for the cond-gated recompute's instantiation
+        run, n = launches[kname]
+        top, *others = configs[kname]
         entry = dict(name=kname, route="cuda", source=src, replaces=rep,
-                     launches=launches[kname], dtype="float32")
-        entry.update({k: checks[(kname, "float32")][k] for k in keys})
-        entry["float64"] = {k: checks[(kname, "float64")][k] for k in keys}
+                     launches=n, launches_in=run, config=top)
+        entry.update({k: checks[(kname, top)][k] for k in keys})
+        for c in others:
+            entry[c] = {k: checks[(kname, c)][k] for k in keys}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

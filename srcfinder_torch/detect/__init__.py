@@ -1,1 +1,2 @@
-"""Plume detection: FCN saliency and the salience-to-plume-list step."""
+"""Plume detection: FCN saliency, dense CNN saliency and the
+salience-to-plume-list step."""

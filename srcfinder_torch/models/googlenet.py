@@ -120,6 +120,16 @@ class GoogLeNet(nn.Module):
     4: maxpool3+inception4 | 5: maxpool4+inception5.
     ``features_only=True`` returns the inception5b output; otherwise the
     global-average-pooled logits.
+
+    ``start_stage`` (1..5) enters the forward mid-trunk: ``x`` is the
+    output of stage ``start_stage - 1`` and computation runs from there
+    (the resume seam for trunk stages computed elsewhere, such as the
+    exact CNN's fused kernels). ``start_pooled=True`` declares that ``x``
+    has also been through stage ``start_stage``'s leading ceil-mode max
+    pool (stages 3..5), which is then skipped.
+
+    ``model.to(torch.bfloat16)`` runs the trunk in bf16: each conv
+    accumulates in f32 and rounds its output to bf16.
     """
 
     def __init__(self, num_classes: int = 2, fused: bool = False,
@@ -157,31 +167,35 @@ class GoogLeNet(nn.Module):
             elif isinstance(mod, nn.BatchNorm2d):
                 mod.reset_parameters()
 
-    def forward(self, x, stage: int | None = None, features_only: bool = False):
-        if stage in (None, 1):
+    def forward(self, x, stage: int | None = None, features_only: bool = False,
+                start_stage: int = 1, start_pooled: bool = False):
+        def runs(k):
+            return stage in (None, k) and start_stage <= k
+
+        def lead_pool(k, window):
+            return x if start_pooled and start_stage == k else _ceil_maxpool(x, window, 2)
+
+        if runs(1):
             x = self.conv1(x)
             if stage == 1:
                 return x
-        if stage in (None, 2):
-            x = _ceil_maxpool(x, 3, 2)
-            x = self.conv3(self.conv2(x))
+        if runs(2):
+            x = self.conv3(self.conv2(_ceil_maxpool(x, 3, 2)))
             if stage == 2:
                 return x
-        if stage in (None, 3):
-            x = _ceil_maxpool(x, 3, 2)
-            x = self.inception3b(self.inception3a(x))
+        if runs(3):
+            x = self.inception3b(self.inception3a(lead_pool(3, 3)))
             if stage == 3:
                 return x
-        if stage in (None, 4):
-            x = _ceil_maxpool(x, 3, 2)
+        if runs(4):
+            x = lead_pool(4, 3)
             for blk in (self.inception4a, self.inception4b, self.inception4c,
                         self.inception4d, self.inception4e):
                 x = blk(x)
             if stage == 4:
                 return x
-        if stage in (None, 5):
-            x = _ceil_maxpool(x, 2, 2)
-            x = self.inception5b(self.inception5a(x))
+        if runs(5):
+            x = self.inception5b(self.inception5a(lead_pool(5, 2)))
             if stage == 5:
                 return x
         if features_only:

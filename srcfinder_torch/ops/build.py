@@ -49,15 +49,19 @@ class CudaKernel:
     ``signatures`` maps each exported function name to its ctypes
     argument types (the return type is always ``int``: the launch's
     ``cudaError_t``). ``launches`` counts successful calls of
-    :meth:`launch`; callers that want to attribute launches to one run
-    reset it to 0 first.
+    :meth:`launch`, and ``counts`` the same per entry point; callers that
+    want to attribute launches to one run :meth:`reset` them first.
     """
 
     def __init__(self, source: str, signatures: dict):
         self.source = os.path.join(_CSRC, source)
         self.signatures = signatures
-        self.launches = 0
+        self.reset()
         self._lib = None
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.counts = dict.fromkeys(self.signatures, 0)
 
     @property
     def name(self) -> str:
@@ -126,6 +130,7 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
         self.launches += 1
+        self.counts[fn] += 1
 
 
 def build_all(kernels) -> None:

@@ -1,0 +1,307 @@
+"""The port's exact dense CNN (``srcfinder_torch.detect.cnn_pipeline``,
+``cnn_cli``) and its trunk segments (``srcfinder_torch.ops.trunk_fuse``)
+held against the JAX package on the CPU.
+
+Both packages get the same Flax variables: a tree in the Flax layout made
+with numpy (structure from the port's model, values from a seeded numpy
+generator), rescaled to conv std sqrt(1 / fan_in) with BatchNorm perturbed
+as after training, so activations stay O(1) through the trunk and the
+saliency is far from constant. The port reads them through
+``flax_to_torch_state_dict``. Tolerance: atol 1e-5 in f32, where the two
+sides differ only in convolution algorithm and summation order (~1e-6 at
+these activations). On the CPU the port's trunk kernels run their plain
+versions.
+"""
+
+import copy
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from srcfinder_tpu.detect import cnn_pipeline as jcp
+from srcfinder_tpu.models import googlenet as jgooglenet
+from srcfinder_tpu.models.googlenet import _ceil_maxpool as jpool
+from srcfinder_tpu.models.googlenet import fold_inference as jfold
+from srcfinder_torch.core.envi import open_envi, save_envi
+from srcfinder_torch.detect import cnn_cli
+from srcfinder_torch.detect import cnn_pipeline as tcp
+from srcfinder_torch.models import convert
+from srcfinder_torch.models.googlenet import (GoogLeNet, _ceil_maxpool, fold_inference,
+                                              fold_state_dict, fuse_state_dict)
+from srcfinder_torch.ops import trunk_fuse as tf
+
+torch.set_num_threads(1)
+
+ATOL = 1e-5
+DIM = 32                       # window side of the CPU tests
+IMG = (9, 13)                  # 117 windows: 7 full batches of 16 and a padded tail
+BATCH = 16
+
+
+def _flax_model():
+    return jgooglenet(num_classes=2, dropout=0.0, dropout_aux=0.0)
+
+
+@pytest.fixture(scope="module")
+def variables():
+    """Trained-like Flax variables (numpy leaves)."""
+    rng = np.random.default_rng(2801)
+    tree = convert.torch_state_dict_to_flax(GoogLeNet(num_classes=2).state_dict())
+    v = copy.deepcopy(tree)
+
+    def walk(p, s):
+        for k, a in p.items():
+            if k == "bn":
+                c = a["scale"].shape
+                a["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+                a["bias"] = rng.normal(0, 0.2, c).astype(np.float32)
+                s[k]["mean"] = rng.normal(0, 0.2, c).astype(np.float32)
+                s[k]["var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+            elif isinstance(a, dict):
+                walk(a, s.get(k, {}))
+            elif k == "kernel":
+                fan_in = np.prod(a.shape[:-1])
+                p[k] = (rng.normal(size=a.shape) / np.sqrt(fan_in)).astype(np.float32)
+    walk(v["params"], v["batch_stats"])
+    return v
+
+
+@pytest.fixture(scope="module")
+def folded(variables):
+    """(Flax folded model, its variables, the port's folded model)."""
+    fmodel, fvars = jfold(_flax_model(), variables)
+    return fmodel, fvars, fold_inference(_port_model(variables))
+
+
+def _port_model(variables):
+    model = GoogLeNet(num_classes=2)
+    model.load_state_dict(convert.flax_to_torch_state_dict(variables))
+    return model.eval()
+
+
+def _nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
+
+
+@pytest.fixture(scope="module")
+def jax_stages(folded):
+    """Windows and the JAX model's stage compositions for them: the
+    references of fused_stage12, s23 (its input: conv1's output) and s45
+    (its input: the s23 reference)."""
+    fmodel, fvars, _ = folded
+    wins = np.random.default_rng(3).normal(0.0, 1.0, (2, DIM, DIM, 1)).astype(np.float32)
+
+    def stage(x, k, **kw):
+        return fmodel.apply(fvars, x, train=False, stage=k, **kw)
+    c1 = stage(jnp.asarray(wins), 1)
+    c3 = stage(c1, 2)
+    ref23 = jpool(stage(c3, 3), 3, 2)
+    s4 = stage(ref23, 4, start_stage=4, start_pooled=True)
+    ref45 = stage(s4, 5, start_stage=5).mean(axis=(1, 2))
+    return {"wins": wins, "c1": np.asarray(c1), "ref12": np.asarray(jpool(c3, 3, 2)),
+            "ref23": np.asarray(ref23), "ref45": np.asarray(ref45)}
+
+
+def test_midtrunk_resume_matches_full_and_jax(folded, jax_stages):
+    """start_stage / start_pooled rebuild the full forward from pieces, in
+    the port and against the JAX package."""
+    fmodel, fvars, tmodel = folded
+    wins = jax_stages["wins"]
+    x = _nchw(wins)
+    ref = np.asarray(fmodel.apply(fvars, jnp.asarray(wins), train=False))
+    with torch.no_grad():
+        full = tmodel(x)
+        s2 = tmodel(tmodel(x, stage=1), stage=2)
+        p3 = tmodel(_ceil_maxpool(s2, 3, 2), start_stage=3, start_pooled=True)
+        s3 = tmodel(s2, stage=3)
+        p4 = _ceil_maxpool(s3, 3, 2)
+        from4 = tmodel(p4, start_stage=4, start_pooled=True)
+        from5 = tmodel(tmodel(p4, stage=4, start_stage=4, start_pooled=True), start_stage=5)
+        jfrom4 = fmodel.apply(fvars, jnp.asarray(jax_stages["ref23"]), train=False,
+                              start_stage=4, start_pooled=True)
+    assert np.abs(ref).max() > 0.1
+    np.testing.assert_allclose(full.numpy(), ref, rtol=0, atol=ATOL)
+    for got in (p3, from4, from5):
+        np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(p4.permute(0, 2, 3, 1).numpy(), jax_stages["ref23"],
+                               rtol=0, atol=ATOL)
+    np.testing.assert_allclose(from4.numpy(), np.asarray(jfrom4), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("layout", ["canonical", "fused0"])
+def test_plain_trunk_segments_match_jax_stages(variables, jax_stages, layout):
+    """fused_stage12, s23 and s45 (their plain versions on the CPU) with
+    parameters from the canonical and the fused0 layout == the JAX model's
+    stage compositions."""
+    sd = {k: v.numpy() for k, v in convert.flax_to_torch_state_dict(variables).items()}
+    sd = fold_state_dict(fuse_state_dict(sd) if layout == "fused0" else sd)
+    assert ("inception3a.fused0.conv.weight" in sd) == (layout == "fused0")
+    wins, c1, ref23 = (torch.tensor(jax_stages[k]) for k in ("wins", "c1", "ref23"))
+    got = {"ref12": tf.fused_stage12(wins, tf.stage12_params(sd)),
+           "ref23": tf.trunk_s23(c1, tf.trunk_segment_params(sd, "s23")),
+           "ref45": tf.trunk_s45(ref23, tf.trunk_segment_params(sd, "s45"))}
+    for k, g in got.items():
+        ref = jax_stages[k]
+        assert g.shape == ref.shape and np.abs(ref).max() > 0.1, k
+        np.testing.assert_allclose(g.numpy(), ref, rtol=0, atol=ATOL, err_msg=k)
+
+
+def test_plain_trunk_segments_bf16_close_to_f32(folded, jax_stages):
+    """The bf16 plain versions (bf16 inputs and weights, f32 accumulation,
+    bf16 rounding after each conv) stay within 2% of the largest f32
+    output, the ceiling the CUDA kernels are held to in bf16; measured
+    0.3-0.6% here."""
+    sd = folded[2].state_dict()
+    cases = [(tf.fused_stage12, tf.stage12_params(sd), "wins", "ref12"),
+             (tf.trunk_s23, tf.trunk_segment_params(sd, "s23"), "c1", "ref23"),
+             (tf.trunk_s45, tf.trunk_segment_params(sd, "s45"), "ref23", "ref45")]
+    for fn, params, src, ref in cases:
+        x = torch.tensor(jax_stages[src]).to(torch.bfloat16)
+        got = fn(x, [p.to(torch.bfloat16) for p in params])
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.float().numpy() - jax_stages[ref]).max()
+        assert err <= 2e-2 * np.abs(jax_stages[ref]).max(), (ref, err)
+
+
+def test_packed_weights_are_the_fused_layout(folded):
+    """The weight packing both versions read: each inception's wide 1x1 is
+    the fused0 conv in (cin, cout) layout; shapes are checked, and weights
+    packed once give what the flat list gives."""
+    sd = folded[2].state_dict()
+    params = tf.trunk_segment_params(sd, "s45")
+    packed = tf.pack_params("trunk_s45", params, dtype=torch.bfloat16)
+    assert len(packed.tensors) == 8 * 7
+    assert all(t.dtype == torch.bfloat16 for t in packed.tensors)
+    packed = tf.pack_params("trunk_s45", params)
+    w = sd["inception4a.fused0.conv.weight"][:, :, 0, 0].t()
+    torch.testing.assert_close(packed.tensors[0], w, rtol=0, atol=0)
+    torch.testing.assert_close(packed.tensors[1][0], sd["inception4a.fused0.conv.bias"],
+                               rtol=0, atol=0)
+    x = torch.randn(2, 2, 2, 480, generator=torch.Generator().manual_seed(7))
+    torch.testing.assert_close(tf.trunk_s45(x, packed), tf.trunk_s45(x, params),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="weight shapes"):
+        tf.pack_params("trunk_s23", params)
+    with pytest.raises(ValueError, match="packed for trunk_s45"):
+        tf.trunk_s23(torch.zeros(1, 32, 32, 64), packed)
+    with pytest.raises(ValueError, match="BN-folded"):
+        tf.stage12_params(GoogLeNet(num_classes=2).state_dict())
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.empty(1, 32, 32, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tf.trunk_s23(x, [])
+
+
+def test_reference_pad_matches_jax():
+    img = np.random.default_rng(4).normal(size=(5, 7)).astype(np.float32)
+    for dim in (32, 256):
+        np.testing.assert_array_equal(tcp.reference_pad(torch.from_numpy(img), dim).numpy(),
+                                      np.asarray(jcp.reference_pad(img, dim)))
+
+
+@pytest.fixture(scope="module")
+def jax_saliency(variables):
+    """A raw CH4 band with nodata pixels and the JAX package's
+    cnn_saliency_image of it (f32, fused, dim 32, batch 16); the one XLA
+    compile of the window scan at this shape serves every test here."""
+    rng = np.random.default_rng(16)
+    band = rng.normal(300.0, 400.0, IMG).astype(np.float32)
+    band[0, :4] = -9999.0
+    ref = np.asarray(jcp.cnn_saliency_image(band, variables, dim=DIM, batch=BATCH,
+                                            model=_flax_model()))
+    return band, ref
+
+
+def test_cnn_window_saliency_matches_jax(folded):
+    """All three trunk routes, batch 16 with a padded tail, == JAX's exact
+    window scan; on the CPU the routes agree bit for bit."""
+    fmodel, fvars, tmodel = folded
+    img = np.random.default_rng(5).normal(0.0, 3.0, IMG).astype(np.float32)
+    ref = np.asarray(jcp.cnn_window_saliency(fmodel, fvars, jnp.asarray(img),
+                                             dim=DIM, batch=BATCH))
+    assert ref.std() > 1e-3
+    seen = []
+    got = {t: tcp.cnn_window_saliency(tmodel, torch.from_numpy(img), dim=DIM,
+                                      batch=BATCH, trunk=t,
+                                      progress=lambda d, n: seen.append((d, n)))
+           for t in tcp.TRUNKS}
+    assert seen[-1] == (117, 117) and len(seen) == 3 * 8
+    np.testing.assert_allclose(got["plain"].numpy(), ref, rtol=0, atol=ATOL)
+    for t in ("segments", "stage12"):
+        torch.testing.assert_close(got[t], got["plain"], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown trunk"):
+        tcp.cnn_window_saliency(tmodel, torch.from_numpy(img), dim=DIM, trunk="xla")
+
+
+def test_cnn_fast_saliency_matches_jax(folded):
+    fmodel, fvars, tmodel = folded
+    img = np.random.default_rng(6).normal(0.0, 1.0, (6, 9)).astype(np.float32)
+    ref = np.asarray(jcp.cnn_fast_saliency(fmodel, fvars, jnp.asarray(img), dim=64))
+    got = tcp.cnn_fast_saliency(tmodel, torch.from_numpy(img), dim=64)
+    assert got.shape == (6, 9) and ref.std() > 1e-4
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
+
+
+def test_cnn_saliency_image_matches_jax(variables, jax_saliency):
+    """Raw band -> saliency from the canonical model (folded inside),
+    nodata re-stamped in f32, against JAX; the bf16 trunk stays within
+    2e-2 of it."""
+    band, ref = jax_saliency
+    model = _port_model(variables)
+    got = tcp.cnn_saliency_image(band, model, dim=DIM, batch=BATCH, device="cpu")
+    assert got.dtype == torch.float32
+    nodata = band == -9999.0
+    np.testing.assert_array_equal(got.numpy() == -9999.0, nodata)
+    assert ref[~nodata].std() > 1e-3
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
+    bf16 = tcp.cnn_saliency_image(band, model, dim=DIM, batch=BATCH,
+                                  dtype=torch.bfloat16, device="cpu").numpy()
+    np.testing.assert_array_equal(bf16[nodata], -9999.0)
+    assert np.abs(bf16 - ref).max() <= 2e-2
+    with pytest.raises(ValueError, match="unknown method"):
+        tcp.cnn_saliency_image(band, model, dim=DIM, method="dense", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcp.cnn_saliency_image(band, model, dim=DIM)
+
+
+def test_cnn_cli_matches_jax(tmp_path, variables, jax_saliency):
+    """cnn_cli.main on a one-band ENVI file, weights as .npz in the Flax
+    layout: the saliency it writes == the JAX package's
+    cnn_saliency_image of the same band, nodata stamped, map info kept."""
+    band, ref = jax_saliency
+    mapinfo = ["UTM", "1", "1", "272247.15", "3992010.65", "3.1", "3.1", "11",
+               "North", "WGS-84", "units=Meters", "rotation=0"]
+    save_envi(str(tmp_path / "ang_ch4.hdr"), band[:, :, None],
+              metadata={"data ignore value": -9999, "map info": mapinfo})
+    wf = str(tmp_path / "w.npz")
+    cnn_cli.save_weights(wf, variables)
+    out = tmp_path / "out"
+    rc = cnn_cli.main([str(tmp_path / "ang_ch4"), "-w", wf, "-n", "1", "--dim", str(DIM),
+                       "-b", str(BATCH), "--dtype", "float32", "--superbatch", "1",
+                       "--device", "cpu", "-o", str(out)])
+    assert rc == 0
+    img = open_envi(str(out / "ang_ch4_saliency"))
+    got = img.load()[..., 0]
+    assert img.metadata["map info"] == mapinfo
+    np.testing.assert_array_equal(got == -9999.0, band == -9999.0)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+    assert cnn_cli.main([str(tmp_path / "ang_ch4"), "-w", str(tmp_path / "none.npz"),
+                         "--device", "cpu", "-o", str(out)]) == 1
+
+
+def test_cnn_cli_imports_no_jax():
+    code = ("import sys, srcfinder_torch.detect.cnn_cli, srcfinder_torch.detect.cnn_pipeline, "
+            "srcfinder_torch.ops.trunk_fuse; "
+            "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'srcfinder_tpu')]")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
