@@ -7,13 +7,25 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
 
 1. Device and build: print the card's name and power limit, build the
    port's CUDA kernels from srcfinder_torch/ops/csrc (one nvcc for each
-   source, all started together).
-2. Kernels against their plain PyTorch versions on the card, at the
+   source, all started together), print each kernel's registers and
+   spills (ptxas -v) and count the tensor-core instructions (HMMA,
+   HGMMA) in the SASS of each kernel of the built libraries (cuobjdump);
+   the trunk library must have some.
+2. The bf16 convolutions of trunk_s23 and trunk_s45, one by one: every
+   distinct conv the two segments launch (srcfinder_torch.ops.trunk_fuse.
+   conv_plan) at the CLI's configuration (4096 windows of 256 x 256, in
+   the sub-batches the segments run), through the single-conv entry with
+   the segment's channel offsets, pixel strides and split, against the
+   plain conv in bf16 (TRUNK_TOL), with channels outside the written ones
+   left as they were. Prints ms, achieved TFLOP/s and the tile the
+   dispatch picked for each (it must be the tensor-core kernel's). Then
+   trunk_s45 on 3 windows, whose last blocks end in a ragged row tile.
+3. Kernels against their plain PyTorch versions on the card, at the
    shapes of one full-scene CMF column chunk (2801 lines x 256 columns x
    72 active bands, 201 alphas), in float32 and float64, on inputs made
    by the CMF's own steps from seeded radiance with invalid rows. Prints
    the eigensolve's time and one {"kernels": [...]} line.
-3. The main path at real size: a seeded synthetic AVIRIS-NG-shaped
+4. The main path at real size: a seeded synthetic AVIRIS-NG-shaped
    flightline (2801 lines x 598 samples x 425 bands, f32 BIL, ~2.85 GB,
    written in line blocks) with a methane plume and a CH4 library,
    GoogLeNet weights from a seeded torch.Generator in the JAX package's
@@ -23,7 +35,7 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    ppm*m above background, saliency in [0, 1] with nodata stamped, plume
    list and IME CSV written) and prints stage seconds and peak device
    memory.
-4. The exact dense CNN's trunk kernels (fused_stage12, trunk_s23,
+5. The exact dense CNN's trunk kernels (fused_stage12, trunk_s23,
    trunk_s45) against their plain versions, on windows of 256 x 256
    gathered from a 16-line strip cut through the plume of the scene's CMF
    ppm*m band and preprocessed: 512 windows in float32 and bfloat16, and
@@ -34,7 +46,7 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    torch.Generator seed 256), so activations stay O(1). Prints errors,
    kernel / plain / cuDNN-model times (CUDA events) and each kernel's
    bound.
-5. The exact path on that strip (16 lines x 598 samples = 9,568 windows;
+6. The exact path on that strip (16 lines x 598 samples = 9,568 windows;
    only the scene's line count is cut, the window, the model's widths and
    the batches are real): srcfinder_torch.detect.cnn_cli at its defaults
    (bfloat16, trunk "segments", batch 4096; the main path), held within
@@ -44,7 +56,10 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    within 1e-5 in probability), then the fast method. Each run zeroes the
    launch counters just before and reads them just after, and must have
    launched exactly its route's trunk kernels. Prints seconds, windows/s,
-   peak device memory, launches and a full-scene projection for each run.
+   peak device memory, launches and a full-scene projection for each run,
+   and profiles the default route in f32 and the CLI's configuration
+   (whose profile must name the tensor-core conv kernel), with branch 4's
+   device time in each.
 
 Any failed phase exits non-zero without the result line. The last line
 of standard output is {"ok": true, "device": {...}}.
@@ -53,6 +68,7 @@ of standard output is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -79,13 +95,14 @@ TOL = {"float32": 1e-5, "float64": 1e-12}           # max |err| / max |ref|
 # 1.0e-6 on the H100), bf16 for one-ulp flips at each rounding point
 # (measured 8.3e-3)
 WIN, STRIP_LINES = 256, 16
+CLI_BATCH = 4096                   # cnn_cli's default --batch
 TRUNK_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 TRUNK_KERNELS = ("fused_stage12", "trunk_s23", "trunk_s45")
 # (dtype, windows, kernels) of the trunk-kernel comparisons: 512 windows in
 # both dtypes, and the CLI's own configuration (bf16, batch 4096), where
 # trunk_s23 runs as three sub-batches of its scratch budget
 TRUNK_CONFIGS = (("float32", 512, TRUNK_KERNELS), ("bfloat16", 512, TRUNK_KERNELS),
-                 ("bfloat16", 4096, ("trunk_s23", "trunk_s45")))
+                 ("bfloat16", CLI_BATCH, ("trunk_s23", "trunk_s45")))
 # the trunk kernels each route launches
 ROUTE_KERNELS = {"segments": ("trunk_s23", "trunk_s45"),
                  "stage12": ("fused_stage12", "trunk_s45"), "plain": ()}
@@ -113,6 +130,16 @@ def nvidia_smi_line():
     return out.strip().splitlines()[0]
 
 
+def kernel_label(mangled):
+    """``name<type, ints>`` of a mangled ``*_kernel`` template instance."""
+    k = re.search(r"\d+([a-z_]+_kernel)I(\w+)", mangled)
+    if not k:
+        return mangled
+    args = k.group(2)
+    t = "bf16" if "bfloat16" in args else {"f": "float", "d": "double"}.get(args[0], args)
+    return f"{k.group(1)}<{', '.join([t] + re.findall(r'Li(\d+)E', args))}>"
+
+
 def ptxas_summary(log):
     """nvcc's ``ptxas -v`` output -> {kernel<type>: [resource lines]}:
     registers, shared memory and spills of each compiled kernel."""
@@ -120,15 +147,28 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)I(\w+)", m.group(1))
-            name = m.group(1)
-            if k:
-                args = k.group(2)
-                t = ("bf16" if "bfloat16" in args
-                     else {"f": "float", "d": "double"}.get(args[0], args))
-                name = f"{k.group(1)}<{t}{', pool' if 'Lb1E' in args else ''}>"
+            name = kernel_label(m.group(1))
         elif name and ("spill" in line or "Used" in line):
             out.setdefault(name, []).append(line.split(" : ")[-1].strip())
+    return out
+
+
+def sass_mma_counts(lib):
+    """{kernel: {"HMMA": n, "HGMMA": n}}: tensor-core instructions in the
+    SASS of each kernel of a built library (``cuobjdump -sass``)."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([exe, "-sass", lib], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_label(m.group(1))
+            out[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name:
+            for op in out[name]:
+                out[name][op] += len(re.findall(rf"\b{op}\b", line))
     return out
 
 
@@ -288,6 +328,97 @@ def phase_kernels():
     return results
 
 
+def max_abs_diff(a, b, rows=256):
+    """max |a - b| in f32, over slices of ``rows`` along dim 0."""
+    return max((a[i:i + rows].float() - b[i:i + rows].float()).abs().max().item()
+               for i in range(0, a.shape[0], rows))
+
+
+def phase_conv_shapes():
+    """Every distinct bf16 conv of trunk_s23 and trunk_s45 at the CLI's
+    configuration, in the sub-batch each segment launches, through the
+    single-conv entry as the segment launches it (channel offsets, pixel
+    strides, split) on NaN-filled outputs, against the plain conv:
+    relative error, ms, achieved TFLOP/s and the tile the dispatch picked
+    (trunk_fuse.conv_tile). Each must go to the tensor-core kernel as
+    trunk_fuse.tensor_core_ok says, stay within TRUNK_TOL["bfloat16"] and
+    leave every channel it does not own NaN."""
+    import torch
+    from srcfinder_torch.ops import trunk_fuse as tf
+    bf16, nan = torch.bfloat16, float("nan")
+    gen = torch.Generator(device="cuda").manual_seed(3232)
+    rows, seen = [], set()
+    for name, side in (("trunk_s23", WIN // 2), ("trunk_s45", WIN // 16)):
+        n = tf.sub_batch(name, CLI_BATCH, side, bf16)
+        for c in tf.conv_plan(name, side):
+            if c[1:] in seen:
+                continue
+            seen.add(c[1:])
+            tag = f"{name} {c.layer}"
+            if not tf.tensor_core_ok(c):
+                fail(f"{tag}: outside the tensor-core kernel's dispatch rule")
+            fan_in = c.k * c.k * c.cin
+            ks = (c.cin, c.cout) if c.k == 1 else (c.k, c.k, c.cin, c.cout)
+            k = (torch.randn(ks, generator=gen, device="cuda") * fan_in ** -0.5).to(bf16)
+            b = (torch.randn(1, c.cout, generator=gen, device="cuda") * 0.2).to(bf16)
+            X = torch.randn(n, c.side, c.side, c.ldx, generator=gen, device="cuda",
+                            dtype=bf16).relu_()
+            ho = (c.side + 2 * c.pad - c.k) // c.stride + 1
+            Y0 = torch.full((n, ho, ho, c.ldy0), nan, device="cuda", dtype=bf16)
+            Y1 = (torch.full((n, ho, ho, c.ldy1), nan, device="cuda", dtype=bf16)
+                  if c.split < c.cout else None)
+            x = X[..., c.x_off:c.x_off + c.cin]
+            y0 = Y0[..., c.y_off:c.y_off + c.split]
+            y1 = None if Y1 is None else Y1[..., :c.cout - c.split]
+
+            def run():
+                tf.conv(x, k, b, y0, y1, c.stride, c.pad)
+            tile = tf.conv_tile(x, k, b, y0, y1, c.stride, c.pad)
+            if tile not in (64, 128):
+                fail(f"{tag}: the dispatch picked tile {tile}, not the tensor-core kernel")
+            run()
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                ref = tf._conv_ref(x.permute(0, 3, 1, 2), k, b, c.stride, c.pad
+                                   ).permute(0, 2, 3, 1)
+                got = y0 if y1 is None else torch.cat([y0, y1], dim=3)
+                ref_max = ref.float().abs().max().item()
+                rel = max_abs_diff(got, ref) / ref_max
+                untouched = int(torch.isnan(Y0).sum().item()) + (
+                    0 if Y1 is None else int(torch.isnan(Y1).sum().item()))
+            del ref, got
+            ms = cuda_ms(run, reps=5)
+            m = n * ho * ho
+            ops = 2 * m * c.cout * fan_in
+            rows.append(dict(conv=tag, windows=n, side=c.side, cin=c.cin, cout=c.cout,
+                             k=c.k, M=m, ms=ms, tflops=ops / ms / 1e9, max_rel_err=rel,
+                             ref_max=ref_max, tile=tile))
+            want = m * (c.ldy0 - c.split + (0 if Y1 is None else c.ldy1 - (c.cout - c.split)))
+            if not rel <= TRUNK_TOL["bfloat16"]:
+                fail(f"{tag}: relative error {rel:.3g} > {TRUNK_TOL['bfloat16']:g}")
+            if untouched != want:
+                fail(f"{tag}: {untouched} NaN left in the outputs, expected {want} "
+                     "(channels it does not own, none it does)")
+            del X, Y0, Y1, x, y0, y1, k, b
+        torch.cuda.empty_cache()
+    # every M above is a multiple of the kernel's 128-row tile; trunk_s45 on
+    # 3 windows gives inception 5a/5b (8 x 8 maps) 192 rows, a ragged tile
+    params = [(torch.randn(s, generator=gen, device="cuda")
+               * (0.2 if s[0] == 1 else math.prod(s[:-1]) ** -0.5)).to(bf16)
+              for s in tf._SHAPES["trunk_s45"]]
+    p45 = tf.pack_params("trunk_s45", params)
+    x45 = torch.randn(3, WIN // 16, WIN // 16, 480, generator=gen, device="cuda",
+                      dtype=bf16).relu_()
+    with torch.no_grad():
+        got, ref = tf.trunk_s45(x45, p45), tf.trunk_s45_ref(x45, p45)
+    ragged = max_abs_diff(got, ref) / ref.float().abs().max().item()
+    print(json.dumps({"conv_shapes": rows, "tol": TRUNK_TOL["bfloat16"],
+                      "trunk_s45_b3_max_rel_err": ragged}))
+    if not ragged <= TRUNK_TOL["bfloat16"]:
+        fail(f"trunk_s45 on 3 windows: relative error {ragged:.3g}")
+    return rows
+
+
 def write_scene(workdir, gen):
     """Seeded AVIRIS-NG-shaped radiance (BIL f32) with a plume in the CH4
     window, written in line blocks; plus the CH4 unit-absorption library."""
@@ -411,10 +542,23 @@ def phase_main_path(workdir):
 _PROFILER_MARKERS = ("Buffer Flush", "Activity Buffer Request")
 
 
+def branch4_ms(events):
+    """Device ms of the trunk kernels' inception branch 4 (its 3x3/1 pool
+    and the 1x1 after it) in time-ordered device ``events``: each block
+    launches conv (wide 1x1), conv, conv, pool, conv, and no other pool
+    of the trunk follows three convs."""
+    kind = ["conv" if "conv_kernel" in e.name or "conv_wgmma_kernel" in e.name
+            else "pool" if "maxpool_kernel" in e.name else "" for e in events]
+    return sum(events[i].time_range.elapsed_us() + events[i + 1].time_range.elapsed_us()
+               for i in range(3, len(events) - 1)
+               if kind[i] == "pool" and kind[i - 3:i] == ["conv"] * 3
+               and kind[i + 1] == "conv") / 1e3
+
+
 def device_profile(fn):
     """One profiled call of ``fn()``: wall time, device-busy time (sum of
-    kernel and copy time), idle share, peak memory and the busiest device
-    functions."""
+    kernel and copy time), idle share, peak memory, the busiest device
+    functions and the trunk kernels' branch 4 (``branch4_ms``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -427,16 +571,18 @@ def device_profile(fn):
         wall_ms = (time.time() - t0) * 1e3
     # device-side events only (kernels and copies), summed per name; the
     # CUPTI buffer markers are the profiler's own overhead
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and e.name not in _PROFILER_MARKERS), key=lambda e: e.time_range.start)
     by_name = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name in _PROFILER_MARKERS:
-            continue
+    for e in events:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     rows = sorted(((k[:90], t, n) for k, (t, n) in by_name.items()), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    b4 = branch4_ms(events)
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
-                peak_mem_bytes=torch.cuda.max_memory_allocated(), top=rows[:12])
+                peak_mem_bytes=torch.cuda.max_memory_allocated(), top=rows[:12],
+                branch4_ms=b4, branch4_share=b4 / busy_ms)
 
 
 def profile_stages(rdn, libf, wf, cmf_product, workdir):
@@ -751,6 +897,9 @@ def phase_exact_cnn(workdir, strip, wf):
         saliency=dict(min=float(plain[valid].min()), max=float(plain[valid].max()),
                       std=float(plain[valid].std())),
         profile=profiles)}))
+    top = [r[0] for r in profiles["bf16_segments_b4096"]["top"]]
+    if not any("conv_wgmma_kernel" in t for t in top):
+        fail(f"the CLI configuration's profile names no tensor-core conv kernel: {top}")
     for t, d in diffs.items():
         if not d <= ROUTE_TOL:
             fail(f"{t} differs from the plain route by {d:.3g} > {ROUTE_TOL:g}")
@@ -778,7 +927,12 @@ def main():
     build.build_all(built)
     print(json.dumps({"build_s": time.time() - t0, "ptxas": {
         k.name: ptxas_summary(k.build_log()) for k in built}}))
+    sass = {k.name: sass_mma_counts(k.lib_path()) for k in built}
+    print(json.dumps({"sass_mma": sass}))
+    if not sum(sum(c.values()) for c in sass["trunk"].values()):
+        fail("no HMMA/HGMMA instruction in the trunk library")
 
+    phase_conv_shapes()
     checks = phase_kernels()
 
     workdir = os.path.join(HERE, "chip_smoke_work")

@@ -14,7 +14,10 @@ with BN-folded weights (``models.googlenet.fold_state_dict``):
 For tensors on the CPU each runs its plain PyTorch version
 (``*_ref``, built from ``F.conv2d``/``F.max_pool2d``); for CUDA tensors it
 launches ``csrc/trunk.cu`` (built for ``sm_90a`` at first use) and raises
-if it cannot. The kernels replace the JAX package's Pallas kernels
+if it cannot. In bf16 the convolutions run on the tensor cores wherever
+:func:`tensor_core_ok` holds, which is every conv of ``trunk_s23`` and
+``trunk_s45`` (:func:`conv_plan` lists them); :func:`conv` runs one of
+them alone. The kernels replace the JAX package's Pallas kernels
 ``ops/trunk_fuse.py::fused_stage12`` (git be3cd8d) and
 ``ops/trunk_fuse.py::fused_trunk_segment`` (git ca79403). Both versions
 round where those did: f32 accumulation, bias and ReLU in f32, one rounding
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -39,10 +43,11 @@ import torch.nn.functional as F
 from ..models.googlenet import _ceil_maxpool
 from .build import CudaKernel
 
-__all__ = ["fused_stage12", "trunk_s23", "trunk_s45", "fused_stage12_ref",
+__all__ = ["fused_stage12", "trunk_s23", "trunk_s45", "conv", "conv_tile", "fused_stage12_ref",
            "trunk_s23_ref", "trunk_s45_ref", "stage12_params",
            "trunk_segment_params", "pack_params", "PackedParams", "launches",
-           "KERNEL", "SCRATCH_BUDGET_BYTES"]
+           "KERNEL", "SCRATCH_BUDGET_BYTES", "scratch_plan", "sub_batch",
+           "conv_plan", "ConvLaunch", "tensor_core_ok"]
 
 #: inception channel plans (reference: cnn/archs/googlenet1.py:64-79):
 #: name -> (ch1x1, ch3x3red, ch3x3, ch5x5red, ch5x5, pool_proj)
@@ -61,23 +66,28 @@ _BLOCKS = {"s23": ("inception3a", "inception3b"),
            "s45": ("inception4a", "inception4b", "inception4c", "inception4d",
                    "inception4e", "inception5a", "inception5b")}
 
-#: Device scratch one call may hold; a larger batch runs as sub-batches.
-#: At D = 256 a window needs 9.4 MB (stage 1+2) or 9.0 MB (s23) in f32 and
-#: half that in bf16, so a 512-window f32 batch runs whole and the CLI's
-#: 4096-window bf16 batch in three parts.
+#: Device scratch one call may hold; a larger batch runs as sub-batches
+#: (:func:`sub_batch`). At D = 256 a window needs 9.4 MB (stage 1+2),
+#: 9.7 MB (s23) or 2.8 MB (s45) in f32 and half that in bf16, so a
+#: 512-window f32 batch runs whole and the CLI's 4096-window bf16 batch in
+#: three parts (s23) and one (s45).
 SCRATCH_BUDGET_BYTES = 8 << 30
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIG = [_P, _P, _P, _P, _I, _I, _P]
+# x, ldx, n, H, W, Cin, K, stride, pad, w, b, Cout, y0, ldy0, split, y1, ldy1, stream
+_CONV_SIG = [_P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _L, _I, _P, _L, _P]
 _NAMES = ("fused_stage12", "trunk_s23", "trunk_s45")
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-KERNEL = CudaKernel("trunk.cu", {f"srcf_{n}_{s}": _SIG for n in _NAMES
-                                 for s in _SUFFIX.values()})
+KERNEL = CudaKernel("trunk.cu", {**{f"srcf_{n}_{s}": _SIG for n in _NAMES
+                                    for s in _SUFFIX.values()},
+                                 **{f"srcf_conv_{s}": _CONV_SIG for s in _SUFFIX.values()},
+                                 "srcf_conv_bf16_tile": _CONV_SIG[:-1]})
 
 
 def launches(name: str) -> int:
-    """Launches of one of the three kernels (all dtypes) since the
-    last ``KERNEL.reset()``."""
+    """Launches of one of the three kernels, or of ``"conv"`` (all
+    dtypes), since the last ``KERNEL.reset()``."""
     return sum(KERNEL.counts[f"srcf_{name}_{s}"] for s in _SUFFIX.values())
 
 
@@ -273,20 +283,114 @@ def trunk_s45_ref(x, params):
     return x.float().mean(dim=(2, 3)).to(x.dtype)
 
 
+# ---- launch plans ----------------------------------------------------------
+
+def scratch_plan(name, side):
+    """NHWC shapes of one window's device scratch for entry point ``name``
+    at input side ``side`` (D, h or g), in the order ``csrc/trunk.cu``
+    takes them. ``trunk_s23``'s second map (conv2's output, dead after
+    conv3) later holds branch 4's pooled input of 3a and 3b; the last map
+    of ``trunk_s45`` holds that of each of its blocks."""
+    if name == "fused_stage12":
+        d2, d4 = side // 2, side // 4
+        return [(d2, d2, 64), (d4, d4, 64), (d4, d4, 64), (d4, d4, 192)]
+    if name == "trunk_s23":
+        h2, h4 = side // 2, side // 4
+        return [(h2, h2, 64), (h2, h2, 64), (h2, h2, 192), (h4, h4, 192),
+                (h4, h4, 160), (h4, h4, 256), (h4, h4, 480)]
+    if name == "trunk_s45":
+        return [(side, side, 240)] + [(side, side, 832)] * 3
+    raise ValueError(f"unknown entry point {name!r}")
+
+
+def sub_batch(name, n, side, dtype):
+    """Windows per launch of ``name`` over a batch of ``n``: as many as
+    keep its :func:`scratch_plan` within :data:`SCRATCH_BUDGET_BYTES`."""
+    window_bytes = (sum(math.prod(s) for s in scratch_plan(name, side))
+                    * torch.finfo(dtype).bits // 8)
+    return max(1, min(n, SCRATCH_BUDGET_BYTES // window_bytes))
+
+
+class ConvLaunch(NamedTuple):
+    """One conv a segment launches: ``cin`` input channels read from
+    channel ``x_off`` of a (side, side) map with pixel stride ``ldx``;
+    ``cout`` outputs of a k x k / ``stride`` conv padded by ``pad``, the
+    first ``split`` written from channel ``y_off`` of a map with pixel
+    stride ``ldy0``, the rest from channel 0 of one with pixel stride
+    ``ldy1``."""
+    layer: str
+    side: int
+    cin: int
+    ldx: int
+    x_off: int
+    cout: int
+    k: int
+    stride: int
+    pad: int
+    ldy0: int
+    y_off: int
+    split: int
+    ldy1: int
+
+
+def _plain_conv(layer, side, cin, cout, k, stride=1):
+    return ConvLaunch(layer, side, cin, cin, 0, cout, k, stride, k // 2, cout, 0, cout, cout)
+
+
+def _inception_plan(name, side):
+    """An inception block's four convs: the wide 1x1 (branch 1 into the
+    block output, the reductions into scratch), the two 3x3s reading the
+    scratch, branch 4's 1x1 reading the pooled input."""
+    ch1, red3, ch3, red5, ch5, proj = _INCEPTION[name]
+    cin, cr, co = _cin(name), red3 + red5, ch1 + ch3 + ch5 + proj
+    return [ConvLaunch(f"{name}.wide", side, cin, cin, 0, ch1 + cr, 1, 1, 0, co, 0, ch1, cr),
+            ConvLaunch(f"{name}.branch2", side, red3, cr, 0, ch3, 3, 1, 1, co, ch1, ch3, co),
+            ConvLaunch(f"{name}.branch3", side, red5, cr, red3, ch5, 3, 1, 1, co, ch1 + ch3,
+                       ch5, co),
+            ConvLaunch(f"{name}.branch4", side, cin, cin, 0, proj, 1, 1, 0, co,
+                       ch1 + ch3 + ch5, proj, co)]
+
+
+def conv_plan(name, side):
+    """The convs entry point ``name`` launches at input side ``side`` (D,
+    h or g), in the order and with the channel offsets and pixel strides
+    of ``csrc/trunk.cu``."""
+    if name == "fused_stage12":
+        return [_plain_conv("conv1", side, 1, 64, 7, 2), _plain_conv("conv2", side // 4, 64, 64, 1),
+                _plain_conv("conv3", side // 4, 64, 192, 3)]
+    if name == "trunk_s23":
+        return ([_plain_conv("conv2", side // 2, 64, 64, 1),
+                 _plain_conv("conv3", side // 2, 64, 192, 3)]
+                + sum((_inception_plan(b, side // 4) for b in _BLOCKS["s23"]), []))
+    if name == "trunk_s45":
+        return sum((_inception_plan(b, side if i < 5 else side // 2)
+                    for i, b in enumerate(_BLOCKS["s45"])), [])
+    raise ValueError(f"unknown entry point {name!r}")
+
+
+def tensor_core_ok(c: ConvLaunch, dtype=torch.bfloat16) -> bool:
+    """The dispatch rule of ``csrc/trunk.cu`` (``launch``) for a conv on
+    16-byte-aligned maps: the tensor-core kernel takes it in bf16 when
+    every channel count, offset and pixel stride is a multiple of 8, so a
+    16-byte vector of 8 channels stays inside one tap and aligned; the
+    rest run on the FMA kernel."""
+    return dtype == torch.bfloat16 and all(
+        v % 8 == 0 for v in (c.cin, c.ldx, c.x_off, c.cout, c.split, c.ldy0, c.y_off, c.ldy1))
+
+
 # ---- CUDA wrappers ---------------------------------------------------------
 
-def _launch(name, x, out, weights, per_window, h):
-    """Run entry point ``name`` over ``x`` in sub-batches that keep the
-    scratch (``per_window``: NHWC shapes of one window's intermediates)
-    within :data:`SCRATCH_BUDGET_BYTES`."""
+def _launch(name, x, out, weights, side):
+    """Run entry point ``name`` over ``x`` in sub-batches of
+    :func:`sub_batch` windows, each with the scratch of
+    :func:`scratch_plan`."""
     n = x.shape[0]
-    window_bytes = sum(math.prod(s) for s in per_window) * x.element_size()
-    sub = max(1, min(n, SCRATCH_BUDGET_BYTES // window_bytes))
+    sub = sub_batch(name, n, side, x.dtype)
     # scratch (and weights packed for this call alone) return to PyTorch's
     # caching allocator when this function ends; the allocator hands them
     # out again only to work queued later on the same stream, so the
     # kernels still read them safely
-    scratch = [x.new_empty((sub,) + s) for s in per_window]
+    scratch = [x.new_empty((sub,) + s) for s in scratch_plan(name, side)]
     wptr = (_P * len(weights))(*[t.data_ptr() for t in weights])
     sptr = (_P * len(scratch))(*[t.data_ptr() for t in scratch])
     fn = f"srcf_{name}_{_SUFFIX[x.dtype]}"
@@ -295,7 +399,7 @@ def _launch(name, x, out, weights, per_window, h):
         for i in range(0, n, sub):
             k = min(sub, n - i)
             KERNEL.launch(fn, x[i:i + k].data_ptr(), out[i:i + k].data_ptr(),
-                          ctypes.cast(wptr, _P), ctypes.cast(sptr, _P), k, h, stream)
+                          ctypes.cast(wptr, _P), ctypes.cast(sptr, _P), k, side, stream)
     return out
 
 
@@ -309,6 +413,83 @@ def _check(name, x, channels):
     return x.contiguous()
 
 
+def _pixel_stride(t):
+    """Pixel stride of an NHWC map that may be a channel slice of a wider,
+    contiguous one."""
+    n, h, w, c = t.shape
+    ld = t.stride(2)
+    if t.stride(3) != 1 or ld < c or t.stride(1) != w * ld or t.stride(0) != h * w * ld:
+        raise ValueError(f"conv: map {tuple(t.shape)} with strides {t.stride()} is not a "
+                         "channel slice of a contiguous NHWC map")
+    return ld
+
+
+def _conv_kernel_side(x, k, y0, y1, stride, pad):
+    """The kernel side of :func:`conv`'s arguments, whose shapes must fit
+    together."""
+    kk = 1 if k.dim() == 2 else k.shape[0]
+    outs = [y0] + ([] if y1 is None else [y1])
+    n, h, w = x.shape[:3]
+    ho, wo = (h + 2 * pad - kk) // stride + 1, (w + 2 * pad - kk) // stride + 1
+    if (x.shape[3] != k.shape[-2] or sum(y.shape[3] for y in outs) != k.shape[-1]
+            or any(tuple(y.shape[:3]) != (n, ho, wo) for y in outs)):
+        raise ValueError(f"conv: input {tuple(x.shape)}, kernel {tuple(k.shape)} and "
+                         f"outputs {[tuple(y.shape) for y in outs]} do not fit")
+    return kk
+
+
+def _conv_args(x, k, b, y0, y1, stride, pad):
+    """The C arguments of csrc/trunk.cu's single-conv entry (all but the
+    stream) for CUDA tensors, checked."""
+    kk = _conv_kernel_side(x, k, y0, y1, stride, pad)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv: unsupported device {x.device}")
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"conv: dtype {x.dtype} not supported")
+    outs = [y0] + ([] if y1 is None else [y1])
+    if any((t.device, t.dtype) != (x.device, x.dtype) for t in [k, b] + outs):
+        raise ValueError("conv: kernel, bias and outputs must share the input's device "
+                         "and dtype")
+    if not (k.is_contiguous() and b.is_contiguous()):
+        raise ValueError("conv: kernel and bias must be contiguous")
+    y1 = y0 if y1 is None else y1
+    n, h, w, cin = x.shape
+    return (x.data_ptr(), _pixel_stride(x), n, h, w, cin, kk, stride, pad, k.data_ptr(),
+            b.data_ptr(), k.shape[-1], y0.data_ptr(), _pixel_stride(y0), y0.shape[3],
+            y1.data_ptr(), _pixel_stride(y1))
+
+
+def conv(x, k, b, y0, y1=None, stride=1, pad=0):
+    """Conv + bias + ReLU of the NHWC map ``x`` (B, H, W, cin) with ``k``
+    ((cin, cout) or HWIO) and ``b`` (1, cout): the first ``y0.shape[3]``
+    output channels go to ``y0``, the rest to ``y1``. Each map may be a
+    channel slice of a wider one (``X[..., c0:c1]``), as the segments read
+    and write them (:func:`conv_plan`). Plain version on the CPU; on a card
+    the single-conv entry of ``csrc/trunk.cu`` with the segments' dispatch
+    (:func:`tensor_core_ok`)."""
+    if x.device.type == "cpu":
+        _conv_kernel_side(x, k, y0, y1, stride, pad)
+        out = _nhwc(_conv_ref(_nchw(x), k, b, stride, pad))
+        y0.copy_(out[..., :y0.shape[3]])
+        if y1 is not None:
+            y1.copy_(out[..., y0.shape[3]:])
+        return y0, y1
+    args = _conv_args(x, k, b, y0, y1, stride, pad)
+    with torch.cuda.device(x.device):
+        KERNEL.launch(f"srcf_conv_{_SUFFIX[x.dtype]}", *args,
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    return y0, y1
+
+
+def conv_tile(x, k, b, y0, y1=None, stride=1, pad=0):
+    """The block tile width the card's dispatch picks for :func:`conv` of
+    these bf16 CUDA tensors: 64 or 128 on the tensor-core kernel, 0 on
+    the FMA kernel. Launches nothing."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError("conv_tile: the tensor-core dispatch is for bf16")
+    return KERNEL.load().srcf_conv_bf16_tile(*_conv_args(x, k, b, y0, y1, stride, pad))
+
+
 def fused_stage12(wins, params):
     """(B, D, D, 1) windows -> (B, D/8, D/8, 192); ``params`` from
     :func:`stage12_params`. Plain version on the CPU, CUDA kernel on a card."""
@@ -319,9 +500,7 @@ def fused_stage12(wins, params):
     if d % 8:
         raise ValueError(f"fused_stage12: D % 8 == 0 required, got D = {d}")
     out = wins.new_empty((wins.shape[0], d // 8, d // 8, 192))
-    return _launch("fused_stage12", wins, out, _weights("fused_stage12", params, wins),
-                   [(d // 2, d // 2, 64), (d // 4, d // 4, 64), (d // 4, d // 4, 64),
-                    (d // 4, d // 4, 192)], d)
+    return _launch("fused_stage12", wins, out, _weights("fused_stage12", params, wins), d)
 
 
 def trunk_s23(x, params):
@@ -334,11 +513,8 @@ def trunk_s23(x, params):
     h = x.shape[1]
     if h % 16:
         raise ValueError(f"trunk_s23: h % 16 == 0 required, got h = {h}")
-    h2, h4 = h // 2, h // 4
     out = x.new_empty((x.shape[0], h // 8, h // 8, 480))
-    return _launch("trunk_s23", x, out, _weights("trunk_s23", params, x),
-                   [(h2, h2, 64), (h2, h2, 64), (h2, h2, 192), (h4, h4, 192),
-                    (h4, h4, 160), (h4, h4, 256), (h4, h4, 480)], h)
+    return _launch("trunk_s23", x, out, _weights("trunk_s23", params, x), h)
 
 
 def trunk_s45(x, params):
@@ -353,5 +529,4 @@ def trunk_s45(x, params):
     if g % 2:
         raise ValueError(f"trunk_s45: even g required, got g = {g}")
     out = x.new_empty((x.shape[0], 1024))
-    return _launch("trunk_s45", x, out, _weights("trunk_s45", params, x),
-                   [(g, g, 240), (g, g, 832), (g, g, 832)], g)
+    return _launch("trunk_s45", x, out, _weights("trunk_s45", params, x), g)

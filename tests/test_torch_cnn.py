@@ -14,6 +14,7 @@ versions.
 """
 
 import copy
+import math
 import os
 import subprocess
 import sys
@@ -21,6 +22,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -198,6 +200,137 @@ def test_wrappers_refuse_other_devices():
     x = torch.empty(1, 32, 32, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tf.trunk_s23(x, [])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tf.conv(x, torch.empty(64, 8, device="meta"), torch.empty(1, 8, device="meta"),
+                torch.empty(1, 32, 32, 8, device="meta"))
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("name,side,dtype,batch,parts", [
+    ("trunk_s23", 128, BF16, 4096, 3),       # the CLI: bf16, batch 4096, D = 256
+    ("trunk_s45", 16, BF16, 4096, 1),
+    ("trunk_s23", 128, F32, 4096, 5),
+    ("trunk_s23", 128, F32, 512, 1),
+    ("fused_stage12", 256, F32, 512, 1)])
+def test_scratch_plan_sub_batches(name, side, dtype, batch, parts):
+    """The sub-batches a segment runs in: as many windows as keep the
+    scratch plan within SCRATCH_BUDGET_BYTES."""
+    sub = tf.sub_batch(name, batch, side, dtype)
+    assert math.ceil(batch / sub) == parts
+    window = sum(math.prod(s) for s in tf.scratch_plan(name, side)) * (2 if dtype == BF16 else 4)
+    assert sub * window <= tf.SCRATCH_BUDGET_BYTES < (sub + 1) * window or sub == batch
+
+
+@pytest.mark.parametrize("side", [16, 128])
+def test_scratch_plan_holds_branch4_pooled_maps(side):
+    """trunk_s23 keeps branch 4's pooled block input in conv2's dead map,
+    which is exactly (h/4)^2 * 256 elements: 3b's input, the larger of
+    the two; trunk_s45 has a map of its own as wide as its widest input."""
+    s23 = tf.scratch_plan("trunk_s23", side)
+    h4 = side // 4
+    widest = max(tf._cin(b) for b in tf._BLOCKS["s23"])
+    assert math.prod(s23[1]) == h4 * h4 * 256 == h4 * h4 * widest
+    g = side // 8
+    s45 = tf.scratch_plan("trunk_s45", g)
+    assert s45[3] == (g, g, max(tf._cin(b) for b in tf._BLOCKS["s45"])) == (g, g, 832)
+
+
+@pytest.mark.parametrize("name,side,convs", [("trunk_s23", 128, 10), ("trunk_s45", 16, 28)])
+def test_conv_plan_meets_tensor_core_rule(name, side, convs):
+    """Every conv of P3 meets the tensor-core kernel's alignment rule in
+    bf16, and none in f32; of P2 only conv1 (one input channel) fails it."""
+    plan = tf.conv_plan(name, side)
+    assert len(plan) == convs and len({c.layer for c in plan}) == convs
+    assert all(tf.tensor_core_ok(c) for c in plan)
+    assert not any(tf.tensor_core_ok(c, F32) for c in plan)
+    assert [tf.tensor_core_ok(c) for c in tf.conv_plan("fused_stage12", 256)] == [False, True, True]
+
+
+def _replay(name, x, ws):
+    """trunk_s23 / trunk_s45 on the CPU as csrc/trunk.cu sequences them:
+    each conv of conv_plan through tf.conv on channel slices of maps laid
+    out at the start of scratch_plan's NaN-filled buffers, the pools
+    between them, branch 4's pooled input where the kernel keeps it."""
+    n, side = x.shape[0], x.shape[1]
+    s = [torch.full((n,) + sh, float("nan"), dtype=x.dtype) for sh in tf.scratch_plan(name, side)]
+    todo = list(zip(tf.conv_plan(name, side), ws[::2], ws[1::2]))
+
+    def at(buf, h, ch):
+        return buf.view(-1)[:n * h * h * ch].view(n, h, h, ch)
+
+    def conv(src, dst, red=None):
+        c, k, b = todo.pop(0)
+        tf.conv(src[..., c.x_off:c.x_off + c.cin], k, b, dst[..., c.y_off:c.y_off + c.split],
+                None if red is None else red[..., :c.cout - c.split], c.stride, c.pad)
+
+    def pool(src, dst, k, st):
+        t = tf._nchw(src)
+        dst.copy_((_ceil_maxpool(t, k, st) if st > 1 else F.max_pool2d(t, k, 1, 1))
+                  .permute(0, 2, 3, 1))
+        return dst
+
+    def inception(xin, red_buf, pooled_buf, out_buf):
+        wide, h = todo[0][0], xin.shape[1]
+        red, out = at(red_buf, h, wide.ldy1), at(out_buf, h, wide.ldy0)
+        conv(xin, out, red)
+        conv(red, out)
+        conv(red, out)
+        conv(pool(xin, at(pooled_buf, h, xin.shape[3]), 3, 1), out)
+        return out
+
+    if name == "trunk_s23":
+        conv(pool(x, s[0], 3, 2), s[1])
+        conv(s[1], s[2])
+        a = inception(pool(s[2], s[3], 3, 2), s[4], s[1], s[5])
+        y = inception(a, s[4], s[1], s[6])
+        out = _ceil_maxpool(tf._nchw(y), 3, 2).permute(0, 2, 3, 1)
+    else:
+        y = x
+        for i in range(5):
+            y = inception(y, s[0], s[3], s[1 + i % 2])
+        y = pool(y, at(s[2], side // 2, y.shape[3]), 2, 2)
+        y = inception(inception(y, s[0], s[3], s[1]), s[0], s[3], s[2])
+        out = y.float().mean(dim=(1, 2)).to(y.dtype)
+    assert not todo
+    return out
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("segment", ["s23", "s45"])
+def test_conv_plan_replays_segments(folded, jax_stages, segment, dtype):
+    """conv_plan and scratch_plan, replayed in the kernel's order with its
+    buffer reuse, give the plain version bit for bit and, in f32, the JAX
+    package's stages within 1e-5; so the offsets, strides and splits that
+    csrc/trunk.cu launches (and chip_smoke.py times one by one) compute
+    the segment."""
+    name = f"trunk_{segment}"
+    src, ref = {"s23": ("c1", "ref23"), "s45": ("ref23", "ref45")}[segment]
+    x = torch.tensor(jax_stages[src]).to(dtype)
+    packed = tf.pack_params(name, tf.trunk_segment_params(folded[2].state_dict(), segment),
+                            dtype=dtype)
+    got = _replay(name, x, packed.tensors)
+    torch.testing.assert_close(got, getattr(tf, name)(x, packed), rtol=0, atol=0)
+    if dtype == F32:
+        np.testing.assert_allclose(got.numpy(), jax_stages[ref], rtol=0, atol=ATOL)
+
+
+def test_conv_writes_only_its_channels():
+    """tf.conv on channel slices: the split lands in y0 and y1 as one conv
+    computes it, every other channel keeps its fill; mismatched shapes
+    raise."""
+    g = torch.Generator().manual_seed(11)
+    X = torch.randn(2, 5, 5, 40, generator=g)
+    k, b = torch.randn(3, 3, 24, 16, generator=g), torch.randn(1, 16, generator=g)
+    Y, R = torch.full((2, 5, 5, 32), float("nan")), torch.full((2, 5, 5, 16), float("nan"))
+    tf.conv(X[..., 8:32], k, b, Y[..., 8:16], R[..., :8], pad=1)
+    ref = tf._conv_ref(tf._nchw(X[..., 8:32]), k, b, pad=1).permute(0, 2, 3, 1)
+    torch.testing.assert_close(torch.cat([Y[..., 8:16], R[..., :8]], 3), ref, rtol=0, atol=0)
+    assert torch.isnan(Y[..., :8]).all() and torch.isnan(Y[..., 16:]).all()
+    assert torch.isnan(R[..., 8:]).all()
+    with pytest.raises(ValueError, match="do not fit"):
+        tf.conv(X[..., 8:32], k, b, Y[..., 8:16])
 
 
 def test_reference_pad_matches_jax():
