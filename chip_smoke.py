@@ -9,8 +9,9 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    port's CUDA kernels from srcfinder_torch/ops/csrc (one nvcc for each
    source, all started together), print each kernel's registers and
    spills (ptxas -v) and count the tensor-core instructions (HMMA,
-   HGMMA) in the SASS of each kernel of the built libraries (cuobjdump);
-   the trunk library must have some.
+   HGMMA, DMMA) in the SASS of each kernel of the built libraries
+   (cuobjdump); the trunk library must have some, and the f64 LOOCV
+   kernel (loo_kernel<double>) must have DMMA.
 2. The bf16 convolutions of trunk_s23 and trunk_s45, one by one: every
    distinct conv the two segments launch (srcfinder_torch.ops.trunk_fuse.
    conv_plan) at the CLI's configuration (4096 windows of 256 x 256, in
@@ -22,9 +23,15 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    trunk_s45 on 3 windows, whose last blocks end in a ragged row tile.
 3. Kernels against their plain PyTorch versions on the card, at the
    shapes of one full-scene CMF column chunk (2801 lines x 256 columns x
-   72 active bands, 201 alphas), in float32 and float64, on inputs made
-   by the CMF's own steps from seeded radiance with invalid rows. Prints
-   the eigensolve's time and one {"kernels": [...]} line.
+   72 active bands, 201 alphas), in float32 and float64, and on 8 of its
+   columns in float64 (the cond-gated f64 recompute's shape,
+   "float64_c8"), on inputs made by the CMF's own steps from seeded
+   radiance with invalid rows. Each kernel must also give bit-identical
+   outputs on two launches, and the nll built from the LOOCV kernel's
+   sums must pick the plain version's alpha on every column (or a
+   minimum within TOL of it). Then both at small shapes off that path
+   (ODD_SHAPES: 82 and 415 bands, unaligned rows, one line) in both
+   dtypes. Prints the eigensolve's time and one {"kernels": [...]} line.
 4. The main path at real size: a seeded synthetic AVIRIS-NG-shaped
    flightline (2801 lines x 598 samples x 425 bands, f32 BIL, ~2.85 GB,
    written in line blocks) with a methane plume and a CH4 library,
@@ -63,6 +70,11 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
 
 Any failed phase exits non-zero without the result line. The last line
 of standard output is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --cmf-times TREE
+
+only times the CMF kernels of TREE's srcfinder_torch on phase 3's inputs
+(see cmf_times), for a same-call A/B of two commits.
 """
 
 from __future__ import annotations
@@ -137,7 +149,7 @@ def kernel_label(mangled):
         return mangled
     args = k.group(2)
     t = "bf16" if "bfloat16" in args else {"f": "float", "d": "double"}.get(args[0], args)
-    return f"{k.group(1)}<{', '.join([t] + re.findall(r'Li(\d+)E', args))}>"
+    return f"{k.group(1)}<{', '.join([t] + re.findall(r'L[ib](\d+)E', args))}>"
 
 
 def ptxas_summary(log):
@@ -154,8 +166,9 @@ def ptxas_summary(log):
 
 
 def sass_mma_counts(lib):
-    """{kernel: {"HMMA": n, "HGMMA": n}}: tensor-core instructions in the
-    SASS of each kernel of a built library (``cuobjdump -sass``)."""
+    """{kernel: {"HMMA": n, "HGMMA": n, "DMMA": n}}: tensor-core
+    instructions in the SASS of each kernel of a built library
+    (``cuobjdump -sass``); DMMA is the FP64 tensor cores' product."""
     exe = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([exe, "-sass", lib], capture_output=True, text=True,
@@ -165,7 +178,7 @@ def sass_mma_counts(lib):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = kernel_label(m.group(1))
-            out[name] = {"HMMA": 0, "HGMMA": 0}
+            out[name] = {"HMMA": 0, "HGMMA": 0, "DMMA": 0}
         elif name:
             for op in out[name]:
                 out[name][op] += len(re.findall(rf"\b{op}\b", line))
@@ -190,7 +203,8 @@ def cuda_ms(fn, reps=10):
 
 def chunk_inputs(dtype, gen):
     """Radiance-like chunk and the CMF's own intermediates for it: the
-    kernels' inputs exactly as matched_filter_columns forms them."""
+    kernels' inputs exactly as matched_filter_columns forms them, and the
+    parts of _loo_nll around the sweep (``nll_parts``)."""
     import torch
     from srcfinder_torch.cmf import matched_filter as mfmod
     from srcfinder_torch.ops.moments import masked_moments_ref
@@ -207,13 +221,31 @@ def chunk_inputs(dtype, gen):
     alphas = torch.as_tensor(mfmod.default_alphas(), dtype=dtype, device="cuda")
     beta = (1.0 - alphas)[None, :] / torch.clamp(n - 1.0, min=1.0)[:, None]
     glam = (n[:, None] * beta)[:, None, :] * lam[:, :, None] + alphas[None, None, :]
-    inv_glam = 1.0 / torch.where(glam > 0, glam, torch.ones_like(glam))
+    safe_glam = torch.where(glam > 0, glam, torch.ones_like(glam))
+    inv_glam = 1.0 / safe_glam
     # real covariances keep q = 1 - beta*r > 0 (leverage < 1); a far
     # steeper beta on 8 columns drives q far below 0 there, for every alpha
     # but alpha = 1 (beta = 0), so the q_ok flag path runs too, with no q
     # near 0 where f32 rounding could flip it
     beta[-8:] *= 1e9
-    return x, m, Rw, Zc.permute(1, 0, 2), inv_glam, beta
+    # nll = where(ok & q_ok, base + ssum * scale, inf), as _loo_nll forms it
+    nll_parts = dict(
+        base=0.5 * (B * math.log(2.0 * math.pi) + 2.0 * torch.log(d).sum(dim=1)[:, None]
+                    + torch.log(safe_glam).sum(dim=1)),
+        scale=(1.0 / (2.0 * torch.clamp(n, min=1.0)))[:, None],
+        ok=torch.all(glam > 0, dim=1))
+    return x, m, Rw, Zc.permute(1, 0, 2), inv_glam, beta, nll_parts
+
+
+def c8_inputs(x, m, Z, inv_glam, beta, nll_parts):
+    """The cond-gated f64 recompute's shape from a chunk's inputs: 8 of its
+    columns (4 ordinary, 4 with the steep beta), laid out as the recompute
+    forms them (x gathered, Z a permuted (C, L, B) product)."""
+    import torch
+    idx = torch.tensor([0, 1, 2, 3, C - 4, C - 3, C - 2, C - 1], device=x.device)
+    Z8 = Z[:, idx].permute(1, 0, 2).contiguous().permute(1, 0, 2)
+    return (x[:, idx].contiguous(), m[:, idx].contiguous(), Z8, inv_glam[idx].contiguous(),
+            beta[idx].contiguous(), {k: v[idx] for k, v in nll_parts.items()})
 
 
 def device_kernel_launches(fn):
@@ -254,17 +286,166 @@ def eigh_probe(Rw, gen):
     return out
 
 
+def bit_identical(fn):
+    """Two launches of ``fn()`` on one input give bit-identical outputs."""
+    import torch
+    a, b = fn(), fn()
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def loo_argmin_check(got, ref, parts, tol):
+    """The alpha that _loo_nll's argmin picks from the kernel's ssum and
+    from the plain version's: the same index on every column, or minima
+    within ``tol`` of each other (relative). Returns the columns that
+    picked another index; fails beyond the tolerance."""
+    import torch
+
+    def nll(ssum, q_ok):
+        v = parts["base"] + ssum * parts["scale"]
+        return torch.where(parts["ok"] & q_ok, v, torch.full_like(v, math.inf))
+    nk, nr = nll(*got), nll(*ref)
+    ik, ir = nk.argmin(dim=1), nr.argmin(dim=1)
+    mk, mr = nk.min(dim=1).values, nr.min(dim=1).values
+    if not torch.isfinite(mr).all():
+        fail("loo_sweep: a column of the plain nll has no finite alpha")
+    diff = (ik != ir).nonzero().flatten().tolist()
+    for c in diff:
+        rel = abs(mk[c].item() - mr[c].item()) / abs(mr[c].item())
+        if not rel <= tol:
+            fail(f"loo_sweep: column {c} picks alpha {ik[c].item()} against the plain "
+                 f"version's {ir[c].item()}, minima {rel:.3g} apart > {tol:g}")
+    return diff
+
+
+def cmf_kernel_checks(name, x, m, Z, inv_glam, beta, parts):
+    """K1 and K2 against their plain versions on one set of inputs:
+    errors, bit-identical repeats, q_ok, the alpha argmin, times, bound."""
+    import torch
+    from srcfinder_torch.ops import loo, moments
+    Lx, Cx, Bx = x.shape
+    Ax = inv_glam.shape[-1]
+    dname = "float64" if x.dtype == torch.float64 else "float32"
+    tol = TOL[dname]
+    s = x.element_size()
+
+    # K1 masked moments
+    got = moments.masked_moments(x, m)
+    torch.cuda.synchronize()
+    ref = moments.masked_moments_ref(x, m)
+    xc = (x - ref[1][None]) * m[:, :, None]
+    k1 = dict(
+        max_abs_err=max((g - r).abs().max().item() for g, r in zip(got, ref)),
+        max_rel_err=max(((g - r).abs().max() / r.abs().max().clamp(min=1e-300)).item()
+                        for g, r in zip(got, ref)),
+        bit_identical=bit_identical(lambda: moments.masked_moments(x, m)),
+        ms=cuda_ms(lambda: moments.masked_moments(x, m)),
+        plain_ms=cuda_ms(lambda: moments.masked_moments_ref(x, m), reps=3),
+        library_ms=cuda_ms(lambda: torch.einsum("lcb,lcd->cbd", xc, xc), reps=3),
+        library_call="einsum lcb,lcd->cbd: the scatter of an already centred, "
+                     "masked cube (no count, mean or centring)",
+        bytes=s * (Lx * Cx * Bx + Lx * Cx + Cx + Cx * Bx + Cx * Bx * Bx),
+        # S is symmetric: B(B+1)/2 multiply-adds per line; the mean pass
+        # and the centring add 4 operations per element, the count one per
+        # line
+        ops=Lx * Cx * Bx * (Bx + 1) + 4 * Lx * Cx * Bx + Lx * Cx)
+    del xc, got, ref
+
+    # K2 LOOCV sweep
+    got = loo.loo_sweep(Z, inv_glam, beta, m)
+    torch.cuda.synchronize()
+    ref = loo.loo_sweep_ref(Z, inv_glam, beta, m)
+    if not torch.equal(got[1], ref[1]):
+        fail(f"loo_sweep {name}: q_ok differs from the plain version")
+    if ref[1].all() or not ref[1].any():
+        fail(f"loo_sweep {name}: inputs do not exercise both q_ok outcomes")
+    z2 = Z * Z
+    k2 = dict(
+        max_abs_err=(got[0] - ref[0]).abs().max().item(),
+        max_rel_err=((got[0] - ref[0]).abs().max() / ref[0].abs().max()).item(),
+        bit_identical=bit_identical(lambda: loo.loo_sweep(Z, inv_glam, beta, m)),
+        argmin_other_columns=loo_argmin_check(got, ref, parts, tol),
+        ms=cuda_ms(lambda: loo.loo_sweep(Z, inv_glam, beta, m)),
+        plain_ms=cuda_ms(lambda: loo.loo_sweep_ref(Z, inv_glam, beta, m), reps=3),
+        library_ms=cuda_ms(lambda: torch.einsum("lcb,cba->lca", z2, inv_glam), reps=3),
+        library_call="einsum lcb,cba->lca: the product r alone, written to device "
+                     "memory (no q, log, division, line sum or flag)",
+        bytes=s * (Lx * Cx * Bx + Cx * Bx * Ax + Cx * Ax + Lx * Cx + Cx * Ax) + Cx * Ax,
+        ops=2 * Lx * Cx * Bx * Ax + 7 * Lx * Cx * Ax)
+    del z2, got, ref
+    out = {}
+    for kname, k in (("masked_moments", k1), ("loo_sweep", k2)):
+        if not k["max_rel_err"] <= tol:
+            fail(f"{kname} {name}: relative error {k['max_rel_err']:.3g} > {tol:g}")
+        if not k["bit_identical"]:
+            fail(f"{kname} {name}: two launches on one input differ")
+        t_bytes = k["bytes"] / PEAK_BYTES * 1e3
+        t_ops = k["ops"] / PEAK_FLOPS[dname] * 1e3
+        k["bound_ms"] = max(t_bytes, t_ops)
+        k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        k["tol"] = tol
+        k["shape"] = [Lx, Cx, Bx, Ax]
+        out[(kname, name)] = k
+    return out
+
+
+# shapes off the CH4 chunk's paths: (L, C, B, A, rows unaligned): the CO2
+# (82) and reflectance (415) windows (band chunks, alpha groups, rows of
+# no whole 16-byte vectors), unaligned rows (element copies), one line
+ODD_SHAPES = ((300, 5, 82, 201, False), (300, 5, 415, 201, False),
+              (130, 3, 72, 201, True), (1, 2, 72, 7, False), (37, 3, 10, 5, True))
+
+
+def odd_shape_checks():
+    """Both CMF kernels against their plain versions at ODD_SHAPES in f32
+    and f64 (TOL), on seeded inputs with a column of no valid line and one
+    of a single valid line; the last column's steep beta drives q far
+    below 0, so q_ok takes both values."""
+    import torch
+    from srcfinder_torch.ops import loo, moments
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for dtype, dname in ((torch.float32, "float32"), (torch.float64, "float64")):
+        for Lx, Cx, Bx, Ax, unaligned in ODD_SHAPES:
+            def rows(t):
+                return t[..., 1:] if unaligned else t[..., :Bx].contiguous()
+            x = rows(torch.rand(Lx, Cx, Bx + 1, generator=gen, device="cuda", dtype=dtype) + 1)
+            m = (torch.rand(Lx, Cx, generator=gen, device="cuda") > 0.1).to(dtype)
+            m[:, 0] = 0.0
+            m[:, 1] = 0.0
+            m[Lx // 2, 1] = 1.0
+            Z = rows(torch.randn(Lx, Cx, Bx + 1, generator=gen, device="cuda", dtype=dtype))
+            ig = torch.rand(Cx, Bx, Ax, generator=gen, device="cuda", dtype=dtype) / Bx
+            beta = torch.rand(Cx, Ax, generator=gen, device="cuda", dtype=dtype) * 0.3
+            beta[-1] *= 1e9
+            errs = {}
+            for kname, got, ref in (
+                    ("masked_moments", moments.masked_moments(x, m), moments.masked_moments_ref(x, m)),
+                    ("loo_sweep", loo.loo_sweep(Z, ig, beta, m), loo.loo_sweep_ref(Z, ig, beta, m))):
+                if kname == "loo_sweep":
+                    if not torch.equal(got[1], ref[1]):
+                        fail(f"loo_sweep {dname} {Lx}x{Cx}x{Bx}x{Ax}: q_ok differs")
+                    got, ref = got[:1], ref[:1]
+                errs[kname] = max(((g - r).abs().max() / r.abs().max().clamp(min=1e-300)).item()
+                                  for g, r in zip(got, ref))
+                if not errs[kname] <= TOL[dname]:
+                    fail(f"{kname} {dname} {Lx}x{Cx}x{Bx}x{Ax} unaligned={unaligned}: "
+                         f"relative error {errs[kname]:.3g} > {TOL[dname]:g}")
+            out[f"{dname} {Lx}x{Cx}x{Bx}x{Ax}{' unaligned' if unaligned else ''}"] = errs
+    print(json.dumps({"cmf_odd_shapes": out}))
+
+
 def phase_kernels():
+    """The CMF kernels against their plain versions: one full column chunk
+    in float32 and float64, and 8 of its columns in float64 (the
+    cond-gated recompute's shape, "float64_c8")."""
     import torch
     from srcfinder_torch.cmf import matched_filter as mfmod
-    from srcfinder_torch.ops import loo, moments
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = {}
     cmf_ms = {}
     for dtype, name in ((torch.float32, "float32"), (torch.float64, "float64")):
-        x, m, Rw, Z, inv_glam, beta = chunk_inputs(dtype, gen)
-        s = torch.finfo(dtype).bits // 8
+        x, m, Rw, Z, inv_glam, beta, parts = chunk_inputs(dtype, gen)
         alphas = torch.as_tensor(mfmod.default_alphas(), dtype=dtype, device="cuda")
         abscf = torch.full((B,), -0.05, dtype=dtype, device="cuda")
         Zc = Z.permute(1, 0, 2)
@@ -273,58 +454,14 @@ def phase_kernels():
             whiten_bmm=cuda_ms(lambda: torch.bmm(Zc, Rw)),
             matched_filter_columns=cuda_ms(
                 lambda: mfmod.matched_filter_columns(x, m, abscf, alphas), reps=3))
-
-        # K1 masked moments
-        got = moments.masked_moments(x, m)
-        torch.cuda.synchronize()
-        ref = moments.masked_moments_ref(x, m)
-        err = max(((g - r).abs().max() / r.abs().max().clamp(min=1e-300)).item()
-                  for g, r in zip(got, ref))
-        abs_err = max((g - r).abs().max().item() for g, r in zip(got, ref))
-        xc = (x - ref[1][None]) * m[:, :, None]
-        k1 = dict(
-            max_abs_err=abs_err, max_rel_err=err,
-            ms=cuda_ms(lambda: moments.masked_moments(x, m)),
-            plain_ms=cuda_ms(lambda: moments.masked_moments_ref(x, m), reps=3),
-            library_ms=cuda_ms(lambda: torch.einsum("lcb,lcd->cbd", xc, xc), reps=3),
-            bytes=s * (L * C * B + L * C + C + C * B + C * B * B),
-            # S is symmetric: B(B+1)/2 multiply-adds per line; the mean
-            # pass and the centring add 4 operations per element, the
-            # count one per line
-            ops=L * C * B * (B + 1) + 4 * L * C * B + L * C)
-        del xc
-
-        # K2 LOOCV sweep
-        got = loo.loo_sweep(Z, inv_glam, beta, m)
-        torch.cuda.synchronize()
-        ref = loo.loo_sweep_ref(Z, inv_glam, beta, m)
-        if not torch.equal(got[1], ref[1]):
-            fail(f"loo_sweep {name}: q_ok differs from the plain version")
-        if ref[1].all() or not ref[1].any():
-            fail("loo_sweep inputs do not exercise both q_ok outcomes")
-        z2 = Z * Z
-        k2 = dict(
-            max_abs_err=(got[0] - ref[0]).abs().max().item(),
-            max_rel_err=((got[0] - ref[0]).abs().max()
-                         / ref[0].abs().max()).item(),
-            ms=cuda_ms(lambda: loo.loo_sweep(Z, inv_glam, beta, m)),
-            plain_ms=cuda_ms(lambda: loo.loo_sweep_ref(Z, inv_glam, beta, m), reps=3),
-            library_ms=cuda_ms(lambda: torch.einsum("lcb,cba->lca", z2, inv_glam), reps=3),
-            bytes=s * (L * C * B + C * B * A + C * A + L * C + C * A) + C * A,
-            ops=2 * L * C * B * A + 7 * L * C * A)
-        del z2, x, m, Rw, Z, Zc, inv_glam, beta, got, ref
+        results.update(cmf_kernel_checks(name, x, m, Z, inv_glam, beta, parts))
+        if dtype == torch.float64:
+            results.update(cmf_kernel_checks(
+                "float64_c8", *c8_inputs(x, m, Z, inv_glam, beta, parts)))
+        del x, m, Rw, Z, Zc, inv_glam, beta, parts
         torch.cuda.empty_cache()
-        for kname, k in (("masked_moments", k1), ("loo_sweep", k2)):
-            if not k["max_rel_err"] <= TOL[name]:
-                fail(f"{kname} {name}: relative error {k['max_rel_err']:.3g} "
-                     f"> {TOL[name]:g}")
-            t_bytes = k["bytes"] / PEAK_BYTES * 1e3
-            t_ops = k["ops"] / PEAK_FLOPS[name] * 1e3
-            k["bound_ms"] = max(t_bytes, t_ops)
-            k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            k["tol"] = TOL[name]
-            results[(kname, name)] = k
     print(json.dumps({"cmf_chunk_ms": cmf_ms, "chunk": [L, C, B, A]}))
+    odd_shape_checks()
     return results
 
 
@@ -909,7 +1046,46 @@ def phase_exact_cnn(workdir, strip, wf):
     return {k: (r, stats[r]["launches"][k]) for k, r in KERNEL_RUN.items()}
 
 
+def cmf_times(tree):
+    """Same-call A/B of the CMF kernels: ``python3 chip_smoke.py --cmf-times
+    TREE`` times masked_moments and loo_sweep of TREE's srcfinder_torch
+    (e.g. an unpacked ``git archive`` of another commit) at one chunk in
+    float32 and float64 and at 8 columns in float64, on this script's
+    seeded inputs (identical in every call), and prints one JSON line.
+    Run it on two trees in turns within one call (old, new, new, old)."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from srcfinder_torch.ops import build, loo, moments
+    if not moments.__file__.startswith(tree):
+        fail(f"srcfinder_torch was not imported from {tree}")
+    build.build_all([moments.KERNEL, loo.KERNEL])
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    out = {}
+    for dtype, name in ((torch.float32, "float32"), (torch.float64, "float64")):
+        x, m, Rw, Z, inv_glam, beta, parts = chunk_inputs(dtype, gen)
+        sets = [(name, (x, m, Z, inv_glam, beta))]
+        if dtype == torch.float64:
+            sets.append(("float64_c8", c8_inputs(x, m, Z, inv_glam, beta, parts)[:5]))
+        for tag, (xx, mm, zz, gg, bb) in sets:
+            got, ref = moments.masked_moments(xx, mm), moments.masked_moments_ref(xx, mm)
+            err1 = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, ref))
+            got, ref = loo.loo_sweep(zz, gg, bb, mm), loo.loo_sweep_ref(zz, gg, bb, mm)
+            err2 = ((got[0] - ref[0]).abs().max() / ref[0].abs().max()).item()
+            out[tag] = dict(
+                masked_moments_ms=cuda_ms(lambda: moments.masked_moments(xx, mm), reps=20),
+                loo_sweep_ms=cuda_ms(lambda: loo.loo_sweep(zz, gg, bb, mm), reps=20),
+                masked_moments_rel_err=err1, loo_sweep_rel_err=err2)
+        del x, m, Rw, Z, inv_glam, beta, parts, sets
+        torch.cuda.empty_cache()
+    print(json.dumps({"cmf_times": out, "tree": tree, "gpu": nvidia_smi_line()}))
+
+
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--cmf-times":
+        return cmf_times(sys.argv[2])
     if not os.path.isdir(os.path.join(HERE, "srcfinder_torch")):
         fail("srcfinder_torch/ is not next to chip_smoke.py")
     sys.path.insert(0, HERE)
@@ -931,6 +1107,8 @@ def main():
     print(json.dumps({"sass_mma": sass}))
     if not sum(sum(c.values()) for c in sass["trunk"].values()):
         fail("no HMMA/HGMMA instruction in the trunk library")
+    if not sass["loo"].get("loo_kernel<double>", {}).get("DMMA"):
+        fail("no DMMA instruction in the f64 LOOCV kernel (loo_kernel<double>)")
 
     phase_conv_shapes()
     checks = phase_kernels()
@@ -965,12 +1143,15 @@ def main():
                           "pl.pallas_call :284 (JAX package, git ca79403)")}
     keys = ("max_abs_err", "max_rel_err", "tol", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    # the CMF kernels also report their shape, the library call's scope,
+    # the repeat check and (K2) the columns whose argmin differs
+    cmf_keys = keys + ("shape", "library_call", "bit_identical", "argmin_other_columns")
     # each kernel's configurations: the first is the one its path runs
     # (the flightline's f32 CMF; the CLI's bf16 batch of 4096 windows; the
     # stage12 route's f32 batch of 512), top level in the line; the others
     # (the CMF's cond-gated f64 recompute, 512-window batches) nested
-    configs = {"masked_moments": ("float32", "float64"),
-               "loo_sweep": ("float32", "float64"),
+    configs = {"masked_moments": ("float32", "float64", "float64_c8"),
+               "loo_sweep": ("float32", "float64", "float64_c8"),
                "fused_stage12": ("float32_b512", "bfloat16_b512"),
                "trunk_s23": ("bfloat16_b4096", "float32_b512", "bfloat16_b512"),
                "trunk_s45": ("bfloat16_b4096", "float32_b512", "bfloat16_b512")}
@@ -980,9 +1161,10 @@ def main():
         top, *others = configs[kname]
         entry = dict(name=kname, route="cuda", source=src, replaces=rep,
                      launches=n, launches_in=run, config=top)
-        entry.update({k: checks[(kname, top)][k] for k in keys})
+        ks = [k for k in cmf_keys if k in checks[(kname, top)]]
+        entry.update({k: checks[(kname, top)][k] for k in ks})
         for c in others:
-            entry[c] = {k: checks[(kname, c)][k] for k in keys}
+            entry[c] = {k: checks[(kname, c)][k] for k in ks}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
