@@ -68,6 +68,39 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    (whose profile must name the tensor-core conv kernel), with branch 4's
    device time in each.
 
+7. The FCN's other paths on the scene's CMF ppm*m band (2801 x 598),
+   with the trained-like weights of phase 5 unless said otherwise (ms and
+   peak device memory of each, and its difference beside its bound):
+   the unblocked phase pass, in f32 and bf16 (bf16 within BF16_TOL); on
+   the band's first 2784 lines (the 32-line grid) the halo-blocked path
+   at block 928 against the unblocked pass (PATH_TOL); two copies of the
+   band through fcn_phase_saliency_batch against the single scene
+   (PATH_TOL); the scan layout against the wide one (PATH_TOL); the
+   dilated pass against the phase pass with the trained-like weights:
+   within PATH_TOL on the interior (pixels at least DILATED_REACH from
+   every image edge, out of reach of every canvas edge), the whole map's
+   largest gap and its row and column reported with the largest gap past
+   each margin from the edges; the dilated pass in bf16, and in f32 at
+   the largest scene its canvas ceiling admits (3,647 lines), whose peak
+   must stay under the card's memory and whose seconds per canvas pixel
+   must stay within DILATED_SLOWDOWN of the 2801-line pass's (past the
+   ceiling the card runs short of convolution workspace and the pass
+   slows ~13x); the dilated pass against the phase
+   pass within BF16_TOL over the whole map with the weights the JAX
+   package's bound holds for (init-time convs, BatchNorm perturbed).
+8. A real-length flightline: a seeded 12,000 x 598 x 425 f32 BIL radiance
+   (12.2 GB; the 2801-line radiance is deleted first) with a methane
+   plume, nodata pixels, and a saturated, a specular, a cloud and a dark
+   patch, through run_flightline with the masks and IME at the defaults
+   (prob_thr 0 as in phase 4): the fused cmf+masks single read, then the
+   FCN through the halo-blocked path (3 windows of 5,824 lines). Checks
+   the plume's z, the route and windows, that each mask band is
+   non-empty and equal to masks_for_flightline on the CPU over the same
+   file, that K1/K2 launched, and K1/K2 at this chunk shape (12,000 x 256
+   x 72, f32) against their plain versions (TOL, repeats bit-identical);
+   prints stage seconds, peak device memory, the windows' peaks, and the
+   unblocked phase pass's peak at the pixel ceiling (8,352 lines).
+
 Any failed phase exits non-zero without the result line. The last line
 of standard output is {"ok": true, "device": {...}}.
 
@@ -129,6 +162,20 @@ ROUTE_TOL = 1e-5                   # kernel route vs plain route, probability
 # CLI was measured 3.5e-3 from the f32 plain route, so two such roundings
 # lie within 7e-3 of each other
 CLI_TOL = 1e-2
+# the FCN's paths (phase 7): an exact path against the one it must equal
+# (cuDNN picks its algorithm per shape, so they differ by rounding, ~1e-6),
+# and the bound the JAX package's tests set for bf16 and the dilated path
+PATH_TOL, BF16_TOL = 1e-5, 2e-2
+# the dilated and phase paths differ only within the trunk's reach of the
+# canvas edges (half its 448-line halo: receptive radius plus the shift
+# grid); margins at which phase 7 reports the largest gap
+DILATED_REACH = 224
+EDGE_MARGINS = (0, 16, 32, 64, 96, 128, 160, 192, 224, 256)
+CARD_BYTES = 80e9
+DILATED_SLOWDOWN = 3.0
+# the real-length flightline (phase 8): 12,000 lines, on the 32-line grid
+LONG_SCENE = (12000, 598, 425)
+LONG_PLUME = (slice(6000, 6040), slice(290, 310))
 
 
 def fail(msg):
@@ -201,14 +248,15 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def chunk_inputs(dtype, gen):
-    """Radiance-like chunk and the CMF's own intermediates for it: the
-    kernels' inputs exactly as matched_filter_columns forms them, and the
-    parts of _loo_nll around the sweep (``nll_parts``)."""
+def chunk_inputs(dtype, gen, lines=L):
+    """Radiance-like chunk of ``lines`` lines and the CMF's own
+    intermediates for it: the kernels' inputs exactly as
+    matched_filter_columns forms them, and the parts of _loo_nll around
+    the sweep (``nll_parts``)."""
     import torch
     from srcfinder_torch.cmf import matched_filter as mfmod
     from srcfinder_torch.ops.moments import masked_moments_ref
-    x = (torch.randn(L, C, B, generator=gen, device="cuda") * 0.5 + 4.0
+    x = (torch.randn(lines, C, B, generator=gen, device="cuda") * 0.5 + 4.0
          ).abs_().add_(0.5).to(dtype)
     x[::37, :, 3] = -1.0                       # invalid rows in every column
     m = mfmod.valid_mask(x).to(dtype)
@@ -673,7 +721,7 @@ def phase_main_path(workdir):
                    ime_rows=len(ime))
     print(json.dumps({"main_path": summary}))
     profile_stages(rdn, libf, wf, prods["cmf"], workdir)
-    return launches, prods["cmf"]
+    return launches, prods["cmf"], rdn, libf
 
 
 _PROFILER_MARKERS = ("Buffer Flush", "Activity Buffer Request")
@@ -1046,6 +1094,312 @@ def phase_exact_cnn(workdir, strip, wf):
     return {k: (r, stats[r]["launches"][k]) for k, r in KERNEL_RUN.items()}
 
 
+def _timed(stats, tag, fn):
+    """``fn()`` with its seconds and peak device memory into ``stats[tag]``."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    stats[tag] = dict(s=time.time() - t0, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _jax_test_weights(workdir):
+    """GoogLeNet weights of the kind the JAX package's dilated and bf16
+    bounds were set for (tests/test_detect.py::_trained_like): init-time
+    convs and fc (trunc-normal std 0.01), BatchNorm affine and running
+    stats perturbed (mean N(0, 0.5), var |N(1, 0.3)|, bias N(0, 0.3),
+    scale |N(1, 0.2)|); torch.Generator seed 3."""
+    import torch
+    from torch import nn
+    from srcfinder_torch.models.convert import save_weights, torch_state_dict_to_flax
+    from srcfinder_torch.models.googlenet import GoogLeNet
+    gen = torch.Generator().manual_seed(3)
+    model = GoogLeNet(num_classes=2, generator=gen)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.BatchNorm2d):
+                mod.running_mean.normal_(0.0, 0.5, generator=gen)
+                mod.running_var.normal_(1.0, 0.3, generator=gen).abs_()
+                mod.bias.normal_(0.0, 0.3, generator=gen)
+                mod.weight.normal_(1.0, 0.2, generator=gen).abs_()
+    wf = os.path.join(workdir, "googlenet_jax_test_like.npz")
+    save_weights(wf, torch_state_dict_to_flax(model.state_dict()))
+    return wf
+
+
+def phase_fcn_paths(workdir, cmf_product, cnn_weights):
+    """The FCN's other paths on the scene's CMF band (phase 7)."""
+    import numpy as np
+    import torch
+    from srcfinder_torch.core.envi import open_envi
+    from srcfinder_torch.detect import fcn_pipeline as tfp
+    from srcfinder_torch.detect.preprocess import norm_for_model, preprocess_ch4
+
+    band = torch.tensor(np.asarray(open_envi(cmf_product).read_band(-1), np.float32),
+                        device="cuda")
+    mean, std = norm_for_model("multi_64")
+    x = preprocess_ch4(band, mean, std)
+    x16 = preprocess_ch4(band.to(torch.bfloat16), mean, std)
+    grid = x[:band.shape[0] // 32 * 32]
+    model = tfp.load_saliency_model(cnn_weights, device="cuda")
+    model16 = tfp.load_saliency_model(cnn_weights, dtype=torch.bfloat16, device="cuda")
+    stats = {}
+    phase = _timed(stats, "phase_f32", lambda: tfp.fcn_phase_saliency(model, x))
+    unblocked = _timed(stats, f"phase_f32_{grid.shape[0]}",
+                       lambda: tfp.fcn_phase_saliency(model, grid))
+    blocked = _timed(stats, f"blocked_928_{grid.shape[0]}",
+                     lambda: tfp.fcn_phase_saliency_blocked(model, grid, block=928))
+    bf16 = _timed(stats, "phase_bf16", lambda: tfp.fcn_phase_saliency(model16, x16))
+    batch = _timed(stats, "batch_2", lambda: tfp.fcn_phase_saliency_batch(
+        model, torch.stack([x, x])))
+    scan = _timed(stats, "scan_f32", lambda: tfp.fcn_phase_saliency(model, x, layout="scan"))
+    dilated = _timed(stats, "dilated_f32", lambda: tfp.fcn_dilated_saliency(model, x))
+    dilated16 = _timed(stats, "dilated_bf16", lambda: tfp.fcn_dilated_saliency(model16, x16))
+    gap = (dilated - phase).abs()
+    h, w = gap.shape
+    rows, cols = torch.arange(h, device=gap.device), torch.arange(w, device=gap.device)
+    edge = torch.minimum(torch.minimum(rows, h - 1 - rows)[:, None],
+                         torch.minimum(cols, w - 1 - cols)[None, :])
+    by_margin = {m: gap[edge >= m].max().item() for m in EDGE_MARGINS}
+    worst = divmod(gap.argmax().item(), w)
+    # the largest scene the dilated path admits at this width, held to the card
+    lines = max(n for n in range(h, 2 * h)
+                if tfp._canvas_px(n, w, 32) <= tfp.MAX_DILATED_CANVAS_PX)
+    big = torch.cat([x, x[:lines - h]])
+    torch.cuda.empty_cache()
+    big_sal = _timed(stats, f"dilated_f32_{lines}",
+                     lambda: tfp.fcn_dilated_saliency(model, big))
+    del big
+    jmodel = tfp.load_saliency_model(_jax_test_weights(workdir), device="cuda")
+    jphase = tfp.fcn_phase_saliency(jmodel, x)
+    jdilated = _timed(stats, "dilated_f32_jax_test_weights",
+                      lambda: tfp.fcn_dilated_saliency(jmodel, x))
+
+    def diff(a, b):
+        return (a.float() - b.float()).abs().max().item()
+    # seconds per canvas pixel at the ceiling over those of the full band
+    slowdown = (stats[f"dilated_f32_{lines}"]["s"] / tfp._canvas_px(lines, w, 32)) / (
+        stats["dilated_f32"]["s"] / tfp._canvas_px(h, w, 32))
+    checks = {
+        "blocked_vs_unblocked": (diff(blocked, unblocked), PATH_TOL),
+        "bf16_vs_f32": (diff(bf16, phase), BF16_TOL),
+        "batch_vs_single": (max(diff(batch[0], phase), diff(batch[1], phase)), PATH_TOL),
+        "scan_vs_wide": (diff(scan, phase), PATH_TOL),
+        "dilated_vs_phase_interior": (by_margin[DILATED_REACH], PATH_TOL),
+        "dilated_bf16_vs_f32": (diff(dilated16, dilated), BF16_TOL),
+        "dilated_vs_phase_jax_test_weights": (diff(jdilated, jphase), BF16_TOL)}
+    saliency_std = {"trained_like": phase.std().item(), "jax_test_weights": jphase.std().item()}
+    print(json.dumps({"fcn_paths": dict(
+        band=list(band.shape), stats=stats,
+        max_abs_diff={k: {"diff": d, "bound": t} for k, (d, t) in checks.items()},
+        dilated_vs_phase=dict(max_abs_diff_past_edge_margin=by_margin,
+                              worst_row_col=list(worst), interior_margin=DILATED_REACH),
+        dilated_ceiling=dict(lines=lines, canvas_px=tfp._canvas_px(lines, w, 32),
+                             ceiling_px=tfp.MAX_DILATED_CANVAS_PX,
+                             slowdown_per_canvas_px=slowdown),
+        saliency_std=saliency_std)}))
+    for k, (d, t) in checks.items():
+        if not d <= t:
+            fail(f"fcn_paths {k}: max |diff| {d:.3g} > {t:g}")
+    for k, v in saliency_std.items():
+        if not v > 1e-3:
+            fail(f"fcn_paths: the {k} saliency is near constant (std {v:.3g})")
+    peak = stats[f"dilated_f32_{lines}"]["peak_mem_bytes"]
+    if not peak < CARD_BYTES:
+        fail(f"fcn_paths: the dilated pass at its ceiling ({lines} lines) peaked "
+             f"at {peak / 1e9:.1f} GB")
+    if not slowdown < DILATED_SLOWDOWN:
+        fail(f"fcn_paths: the dilated pass at its ceiling ({lines} lines) is "
+             f"{slowdown:.1f}x slower per canvas pixel than at {h} lines")
+    for name, sal in (("blocked", blocked), ("bf16", bf16), ("batch", batch),
+                      ("scan", scan), ("dilated", dilated), ("dilated_bf16", dilated16),
+                      (f"dilated_{lines}", big_sal)):
+        if not torch.isfinite(sal).all():
+            fail(f"fcn_paths {name}: saliency not finite")
+
+
+def write_long_scene(workdir, gen):
+    """Seeded real-length radiance (LONG_SCENE, BIL f32) with a plume in the
+    CH4 window, nodata pixels and one patch for each spectrometer mask
+    class, at the bands the header's wavelengths resolve to. The 1945-2485
+    nm window (the saturation test's) is scaled by 0.6, which keeps the
+    background below the 6.0 threshold (unscaled, ~14% of pixels would
+    saturate and the 49-pixel flare growth would take minutes)."""
+    import numpy as np
+    import torch
+    from srcfinder_torch.core.envi import create_envi
+    nl, ns, nb = LONG_SCENE
+    wl = np.linspace(380, 2500, nb)
+    meta = {"lines": nl, "samples": ns, "bands": nb, "interleave": "bil",
+            "data type": 4, "byte order": 0, "header offset": 0,
+            "data ignore value": -9999,
+            "map info": ["UTM", "1", "1", "272247.15", "3992010.65", "3.1",
+                         "3.1", "11", "North", "WGS-84", "units=Meters",
+                         "rotation=0"],
+            "wavelength": [f"{w:.2f}" for w in wl]}
+
+    def band(nm):
+        return int(np.argmin(np.abs(wl - nm)))
+    window = slice(band(1945.0), band(2485.0) + 1)
+    sat = slice(window.start, 350)             # saturation bands outside the CMF's
+    patches = [  # (rows, cols, bands, value)
+        (slice(1000, 1008), slice(100, 108), sat, 8.0),                  # saturated
+        (slice(3000, 3006), slice(400, 406), sat, 8.0),                  # specular:
+        (slice(3000, 3006), slice(400, 406), band(505.0), 12.0),         # + glint
+        (slice(8000, 8010), slice(200, 210), band(450.0), 20.0),         # cloud
+        (slice(8000, 8010), slice(200, 210), band(670.0), 10.0),
+        (slice(8000, 8010), slice(200, 210), band(1250.0), 5.0),
+        (slice(10000, 10006), slice(500, 506), band(2139.0), 0.05)]      # dark
+    rdn = os.path.join(workdir, "ang20200924t220000_rdn_v2y1_img")
+    img = create_envi(rdn + ".hdr", meta)
+    mm = img.open_memmap(interleave="source", writable=True)   # (L, bands, S)
+    absorb = torch.ones(nb, device="cuda")
+    absorb[360:410] = 0.9
+    for r0 in range(0, nl, 256):
+        r1 = min(nl, r0 + 256)
+        blk = (torch.randn(r1 - r0, ns, nb, generator=gen, device="cuda")
+               * 0.5 + 4.0).abs_().add_(0.5)
+        blk[..., window] *= 0.6
+        lo, hi = max(r0, LONG_PLUME[0].start), min(r1, LONG_PLUME[0].stop)
+        if lo < hi:
+            blk[lo - r0:hi - r0, LONG_PLUME[1]] *= absorb
+        for rows, cols, b, v in patches:
+            lo, hi = max(r0, rows.start), min(r1, rows.stop)
+            if lo < hi:
+                blk[lo - r0:hi - r0, cols, b] = v
+        if r0 == 0:
+            blk[0, :3] = -9999.0                               # nodata pixels
+        mm[r0:r1] = blk.permute(0, 2, 1).cpu().numpy()
+    mm.flush()
+    del mm
+    return rdn
+
+
+def phase_long_flightline(workdir, libf, wf):
+    """A real-length flightline through run_flightline with the masks and
+    IME (phase 8). Returns the K1/K2 checks at its chunk shape."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from srcfinder_torch.core.envi import open_envi
+    from srcfinder_torch.detect import fcn_pipeline as tfp
+    from srcfinder_torch.detect.preprocess import norm_for_model, preprocess_ch4
+    from srcfinder_torch.flow.pipeline_cli import run_flightline
+    from srcfinder_torch.masks.cli import masks_for_flightline
+    from srcfinder_torch.ops import loo, moments
+
+    gen = torch.Generator(device="cuda").manual_seed(12000)
+    t0 = time.time()
+    rdn = write_long_scene(workdir, gen)
+    setup_s = time.time() - t0
+    free_gb = shutil.disk_usage(workdir).free / 1e9
+
+    # what the FCN stage runs: the blocked path's calls and each window's
+    # shape, seconds and peak device memory
+    seen = {"blocked": 0, "windows": []}
+    blocked, window = tfp.fcn_phase_saliency_blocked, tfp.fcn_phase_saliency
+
+    def count_blocked(*a, **k):
+        seen["blocked"] += 1
+        return blocked(*a, **k)
+
+    def count_window(model, img, *a, **k):
+        st = {}
+        out = _timed(st, "w", lambda: window(model, img, *a, **k))
+        seen["windows"].append(dict(lines=img.shape[0], **st["w"]))
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    moments.KERNEL.reset()
+    loo.KERNEL.reset()
+    tfp.fcn_phase_saliency_blocked, tfp.fcn_phase_saliency = count_blocked, count_window
+    try:
+        t0 = time.time()
+        prods = run_flightline(rdn, libf, wf, os.path.join(workdir, "out_long"),
+                               prob_thr=0.0, do_masks=True, do_ime=True, device="cuda",
+                               progress=lambda msg: print(msg, flush=True))
+        torch.cuda.synchronize()
+        total_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        tfp.fcn_phase_saliency_blocked, tfp.fcn_phase_saliency = blocked, window
+    launches = {"masked_moments": moments.KERNEL.launches, "loo_sweep": loo.KERNEL.launches}
+
+    nl, ns, _ = LONG_SCENE
+    cmf = open_envi(prods["cmf"]).load()
+    ppmm = cmf[..., 3]
+    valid = ppmm != -9999.0
+    plume = ppmm[LONG_PLUME].mean()
+    bg, bg_sd = ppmm[valid].mean(), ppmm[valid].std()
+    z = (plume - bg) / (bg_sd / np.sqrt(ppmm[LONG_PLUME].size))
+    sal = open_envi(prods["saliency"]).load()[..., 0]
+    sval = sal != -9999.0
+    masks = open_envi(prods["masks"]).load()
+    t0 = time.time()
+    ref_name = masks_for_flightline(rdn + ".hdr", workdir, out_name="masks_cpu", device="cpu")
+    cpu_masks_s = time.time() - t0
+    ref = open_envi(os.path.join(workdir, ref_name)).load()
+    positives = {name: int((masks[..., i] > 0).sum())
+                 for i, name in enumerate(("cloud", "specular", "flare", "dark"))}
+
+    # the unblocked phase pass at the pixel ceiling: its peak device memory
+    ceiling = tfp.MAX_UNBLOCKED_PX // ns // 32 * 32
+    x = preprocess_ch4(torch.tensor(np.asarray(ppmm[:ceiling], np.float32), device="cuda"),
+                       *norm_for_model("multi_64"))
+    model = tfp.load_saliency_model(wf, device="cuda")
+    stats = {}
+    _timed(stats, f"unblocked_{ceiling}", lambda: tfp.fcn_phase_saliency(model, x))
+    del x, model
+
+    # K1 and K2 at this flightline's chunk shape
+    torch.cuda.empty_cache()
+    kgen = torch.Generator(device="cuda").manual_seed(1200)
+    x, m, Rw, Z, inv_glam, beta, parts = chunk_inputs(torch.float32, kgen, lines=nl)
+    checks = cmf_kernel_checks("float32_L12000", x, m, Z, inv_glam, beta, parts)
+    del x, m, Rw, Z, inv_glam, beta, parts
+    torch.cuda.empty_cache()
+
+    summary = dict(
+        scene=list(LONG_SCENE), setup_s=setup_s, disk_free_gb_after_write=free_gb,
+        run_s=total_s, stage_s=prods["timers"],
+        fcn_method="phase-blocked" if seen["blocked"] else "unblocked",
+        fcn_windows=seen["windows"], peak_mem_bytes=peak, plume_z=float(z),
+        plume_ppmm=float(plume), background_ppmm=float(bg), background_sd=float(bg_sd),
+        n_candidates=len(pd.read_csv(prods["detections_csv"])),
+        ime_rows=len(pd.read_csv(prods["ime_csv"])),
+        mask_positives=positives, masks_equal_cpu=bool(np.array_equal(masks, ref)),
+        cpu_masks_s=cpu_masks_s, launches=launches, pixel_ceiling=stats,
+        kernels_L12000={k[0]: {f: v[f] for f in ("max_rel_err", "bit_identical", "ms",
+                                                 "plain_ms", "bound_ms")}
+                        for k, v in checks.items()})
+    print(json.dumps({"long_flightline": summary}))
+    if seen["blocked"] != 1 or [w["lines"] for w in seen["windows"]] != [5824] * 3:
+        fail(f"the FCN ran {seen['blocked']} blocked passes over windows "
+             f"{[w['lines'] for w in seen['windows']]}, not 3 windows of 5824 lines")
+    if not peak < 80e9:
+        fail(f"peak device memory {peak / 1e9:.1f} GB")
+    if not z > 10:
+        fail(f"long flightline: plume z = {z:.1f}")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the long flightline")
+    if not (np.isfinite(ppmm[valid]).all() and (ppmm[0, :3] == -9999.0).all()):
+        fail("long flightline: CMF nodata stamp or finiteness")
+    if not ((sal[sval] >= 0) & (sal[sval] <= 1)).all() or sval.sum() != nl * ns - 3:
+        fail("long flightline: saliency outside [0, 1] or nodata stamp")
+    if masks.shape != (nl, ns, 4) or not (masks[0, :3] == -9999).all():
+        fail(f"masks product shape {masks.shape} or nodata stamp")
+    if not all(positives.values()):
+        fail(f"a mask band is empty: {positives}")
+    if not np.array_equal(masks, ref):
+        fail(f"the masks product differs from the CPU run on "
+             f"{int((masks != ref).any(axis=-1).sum())} pixels")
+    return checks
+
+
 def cmf_times(tree):
     """Same-call A/B of the CMF kernels: ``python3 chip_smoke.py --cmf-times
     TREE`` times masked_moments and loo_sweep of TREE's srcfinder_torch
@@ -1117,12 +1471,16 @@ def main():
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
-        flightline, cmf_product = phase_main_path(workdir)
+        flightline, cmf_product, rdn, libf = phase_main_path(workdir)
         launches = {k: ("run_flightline", n) for k, n in flightline.items()}
         strip = write_strip(workdir, cmf_product)
         cnn_weights = write_cnn_weights(workdir)
         checks.update(phase_trunk_kernels(strip, cnn_weights))
         launches.update(phase_exact_cnn(workdir, strip, cnn_weights))
+        phase_fcn_paths(workdir, cmf_product, cnn_weights)
+        for f in (rdn, rdn + ".hdr"):          # bound the disk use
+            os.remove(f)
+        checks.update(phase_long_flightline(workdir, libf, write_weights(workdir)))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1149,9 +1507,10 @@ def main():
     # each kernel's configurations: the first is the one its path runs
     # (the flightline's f32 CMF; the CLI's bf16 batch of 4096 windows; the
     # stage12 route's f32 batch of 512), top level in the line; the others
-    # (the CMF's cond-gated f64 recompute, 512-window batches) nested
-    configs = {"masked_moments": ("float32", "float64", "float64_c8"),
-               "loo_sweep": ("float32", "float64", "float64_c8"),
+    # (the CMF's cond-gated f64 recompute, the 12,000-line flightline's
+    # chunk, 512-window batches) nested
+    configs = {"masked_moments": ("float32", "float64", "float64_c8", "float32_L12000"),
+               "loo_sweep": ("float32", "float64", "float64_c8", "float32_L12000"),
                "fused_stage12": ("float32_b512", "bfloat16_b512"),
                "trunk_s23": ("bfloat16_b4096", "float32_b512", "bfloat16_b512"),
                "trunk_s45": ("bfloat16_b4096", "float32_b512", "bfloat16_b512")}

@@ -1,3 +1,3 @@
 """Host-side utilities of the port: ENVI I/O, geodesy, morphology,
-statistics, physics and the stdlib xlsx writer. All numpy; nothing here
-touches the device."""
+statistics, physics and the stdlib xlsx writer, all numpy; and the block
+prefetcher, which stages host blocks onto the device."""

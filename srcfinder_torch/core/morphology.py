@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 from scipy import ndimage
 
-__all__ = ["CONN4", "CONN8", "imlabel", "findobj", "bwdist", "mergelabels",
-           "remove_small_objects"]
+__all__ = ["CONN4", "CONN8", "imlabel", "findobj", "disk", "bwdist",
+           "mergelabels", "remove_small_objects"]
 
 CONN4 = 1
 CONN8 = 2
@@ -34,6 +34,14 @@ def imlabel(img, connectivity: int = CONN8):
 def findobj(labimg, max_label: int = 0):
     """Bounding slices per label (reference: srcfinder_util.py:397-399)."""
     return ndimage.find_objects(labimg, max_label=max_label)
+
+
+def disk(radius):
+    """Boolean disk structuring element, skimage-compatible
+    (x^2 + y^2 <= r^2 footprint)."""
+    r = int(radius)
+    yy, xx = np.mgrid[-r:r + 1, -r:r + 1]
+    return (xx * xx + yy * yy) <= r * r
 
 
 def bwdist(bwimg, metric: str = "euclidean", return_distances=True,

@@ -1,14 +1,18 @@
 """CLI: one flightline through the port in one command.
 
     python -m srcfinder_torch.flow.pipeline_cli RADIANCE --library LIB \\
-        --weights W.npz -o OUT [--ime] [--device cuda|cpu]
+        --weights W.npz -o OUT [--masks] [--ime] [--method auto|shift|phase|dilated]
+        [--fcn-dtype float32|bfloat16] [--device cuda|cpu]
 
-runs radiance -> CMF -> FCN saliency -> plume candidates (xlsx+csv)
-[-> IME stats], with per-stage idempotent skips (existing outputs are
-reused — the reference's resume convention) and per-stage wall-clock
-timers. Products are written as ``<name>.part`` and renamed when
-complete, so a stage killed mid-write never leaves a final-named partial
-product for the next run to trust.
+runs radiance -> CMF [+ spectrometer masks] -> FCN saliency -> plume
+candidates (xlsx+csv) [-> IME stats], with per-stage idempotent skips
+(existing outputs are reused — the reference's resume convention) and
+per-stage wall-clock timers. When both the CMF and the masks are to be
+made, one streaming read of the radiance feeds both (the masks' line
+blocks also fill the CMF's active-band and RGB slabs). Products are
+written as ``<name>.part`` and renamed when complete, so a stage killed
+mid-write never leaves a final-named partial product for the next run to
+trust.
 """
 
 from __future__ import annotations
@@ -19,13 +23,15 @@ import sys
 import time
 
 import numpy as np
+import torch
 
-from ..cmf.pipeline import robust_mf_image
+from ..cmf.pipeline import active_range_for_library, robust_mf_image
 from ..core import envi as envi_io
 from ..core.geo import mapinfo
 from ..detect.fcn_pipeline import fcn_saliency_image, load_saliency_model
 from ..detect.salience import salience2detections, save_detections
 from ..device import resolve_device
+from ..masks.cli import flightline_mask_config, mask_output_name, masks_for_flightline
 from .ime_worker import compute_ime_for_cmf
 
 __all__ = ["run_flightline", "main"]
@@ -57,15 +63,32 @@ class _Stage:
                       f"{self.timers[self.name]:.1f}s")
 
 
+def _masks_config_ok(radiance, progress) -> bool:
+    """The masks' metadata check, made before any device work: without a
+    wavelength list or a meter map info the masks (a skippable QC product)
+    are skipped with a warning. Errors raised later, on the device
+    included, propagate."""
+    try:
+        flightline_mask_config(envi_io.open_envi(radiance), radiance)
+    except (ValueError, RuntimeError) as e:
+        progress(f"[WARN] masks skipped: {e}")
+        return False
+    return True
+
+
 def run_flightline(radiance: str, library: str, weights: str, outdir: str,
                    model_name: str = "multi_64", prob_thr: float = 0.5,
                    ppmm_thr: float = 250.0, method: str = "auto",
-                   do_ime: bool = False, dtype="float32",
+                   do_ime: bool = False, do_masks: bool = False,
+                   dtype="float32", fcn_dtype="float32",
                    col_chunk: int = 256, progress=print, device="cuda"):
     """Run all stages for one flightline; returns a dict of products
-    (paths) plus ``timers`` (seconds per stage).
+    (paths) plus ``timers`` (seconds per stage; the fused stage's two
+    phases also as "read+masks" and "cmf phase").
 
-    ``device``: "cuda" (default; raises without a card) or "cpu".
+    ``dtype``: the CMF's precision; ``fcn_dtype``: the FCN trunk's
+    ("float32" or "bfloat16"). ``device``: "cuda" (default; raises
+    without a card) or "cpu".
     """
     dev = resolve_device(device)
     os.makedirs(outdir, exist_ok=True)
@@ -74,18 +97,66 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
     products: dict = {}
     timers: dict = {}
 
-    # ---- L2: CMF ---------------------------------------------------------
+    # ---- L2 + L2b: CMF and spectrometer masks ----------------------------
     cmff = os.path.join(outdir, stem.replace("_rdn", "_cmf")
                         if "_rdn" in stem else stem + "_cmf")
     products["cmf"] = cmff
-    if os.path.exists(cmff):
+    need_cmf = not os.path.exists(cmff)
+    if not need_cmf:
         progress(f"[SKIP] CMF exists: {cmff}")
-    else:
-        with _Stage("cmf", timers, progress):
+    need_masks = False
+    if do_masks:
+        mskname = mask_output_name(stem)
+        mskf = os.path.join(outdir, mskname)
+        products["masks"] = mskf
+        if os.path.exists(mskf):
+            progress(f"[SKIP] masks exist: {mskf}")
+        elif _masks_config_ok(radiance, progress):
+            need_masks = True
+        else:
+            products["masks"] = None
+
+    if need_cmf and need_masks:
+        with _Stage("cmf+masks (fused single-pass read)", timers, progress):
+            rdn = envi_io.open_envi(radiance)
+            a0, a1 = active_range_for_library(library)
+            a0 -= 1
+            rgb_bands = (60, 42, 24)
+            slab = np.empty((rdn.nrows, rdn.ncols, a1 - a0), np.float32)
+            rgb = np.empty((rdn.nrows, rdn.ncols, 3), np.float32)
+
+            def tap(r0, r1, blk, pos):
+                # the active range is a contiguous run of the union band
+                # list, so its positions are consecutive
+                p0 = pos[a0]
+                slab[r0:r1] = blk[:, :, p0:p0 + (a1 - a0)]
+                rgb[r0:r1] = blk[:, :, [pos[b] for b in rgb_bands]]
+
+            t0 = time.time()
+            masks_for_flightline(radiance, outdir, out_name=mskname + ".part",
+                                 device=dev, tap=tap,
+                                 tap_bands=list(range(a0, a1)) + list(rgb_bands))
+            timers["read+masks"] = time.time() - t0
+            progress(f"[PHASE] read+masks done in {timers['read+masks']:.1f}s")
+            t0 = time.time()
             robust_mf_image(radiance, library, cmff + ".part",
                             dtype=np.dtype(dtype).type, col_chunk=col_chunk,
-                            device=dev)
-            _finalize((cmff + ".part", cmff))
+                            rgb_bands=rgb_bands, preloaded=(slab, rgb), device=dev)
+            timers["cmf phase"] = time.time() - t0
+            progress(f"[PHASE] cmf done in {timers['cmf phase']:.1f}s")
+            _finalize((mskf + ".part", mskf), (cmff + ".part", cmff))
+    else:
+        if need_cmf:
+            with _Stage("cmf", timers, progress):
+                robust_mf_image(radiance, library, cmff + ".part",
+                                dtype=np.dtype(dtype).type, col_chunk=col_chunk,
+                                device=dev)
+                _finalize((cmff + ".part", cmff))
+        if need_masks:
+            with _Stage("masks", timers, progress):
+                masks_for_flightline(radiance, outdir, out_name=mskname + ".part",
+                                     device=dev)
+                _finalize((mskf + ".part", mskf))
 
     # ---- L3: FCN saliency ------------------------------------------------
     salf = os.path.join(outdir, os.path.basename(cmff) + "_saliency")
@@ -96,7 +167,8 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
         with _Stage("fcn", timers, progress):
             img = envi_io.open_envi(cmff)
             band = np.asarray(img.read_band(-1), dtype=np.float32)
-            model = load_saliency_model(weights, device=dev)
+            model = load_saliency_model(weights, dtype=getattr(torch, fcn_dtype),
+                                        device=dev)
             sal = fcn_saliency_image(band, model, model_name=model_name,
                                      method=method, device=dev)
             meta = {"data ignore value": -9999}
@@ -147,8 +219,8 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
 
 def build_parser():
     p = argparse.ArgumentParser(
-        description="srcfinder (PyTorch/CUDA): radiance -> CMF -> saliency "
-                    "-> plume list [-> IME] in one command")
+        description="srcfinder (PyTorch/CUDA): radiance -> CMF [+ masks] -> "
+                    "saliency -> plume list [-> IME] in one command")
     p.add_argument("radiance", help="radiance flightline (ENVI)")
     p.add_argument("--library", required=True,
                    help="unit-absorption library (name selects the gas "
@@ -160,10 +232,19 @@ def build_parser():
     p.add_argument("--prob_thr", type=float, default=0.5)
     p.add_argument("--ppmm_thr", type=float, default=250.0)
     p.add_argument("--method", default="auto",
-                   choices=["auto", "shift", "phase"])
+                   choices=["auto", "shift", "phase", "dilated"],
+                   help="FCN path (auto: phase, line-blocked for long scenes; "
+                        "dilated is refused past a 2.5 Mpx canvas, 3,647 "
+                        "lines at width 598)")
     p.add_argument("--ime", action="store_true")
+    p.add_argument("--masks", action="store_true",
+                   help="also make the 4-band spectrometer QC mask (needs "
+                        "wavelengths in the radiance header); with the CMF "
+                        "it shares one read of the cube")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"], help="CMF precision")
+    p.add_argument("--fcn-dtype", default="float32",
+                   choices=["float32", "bfloat16"], help="FCN trunk dtype")
     p.add_argument("--col_chunk", type=int, default=256)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="compute device (cuda raises without a card)")
@@ -176,7 +257,8 @@ def main(argv=None):
         args.radiance, library=args.library, weights=args.weights,
         outdir=args.outdir, model_name=args.model, prob_thr=args.prob_thr,
         ppmm_thr=args.ppmm_thr, method=args.method, do_ime=args.ime,
-        dtype=args.dtype, col_chunk=args.col_chunk, device=args.device)
+        do_masks=args.masks, dtype=args.dtype, fcn_dtype=args.fcn_dtype,
+        col_chunk=args.col_chunk, device=args.device)
     for k, v in products.items():
         print(f"{k}: {v}")
     return 0

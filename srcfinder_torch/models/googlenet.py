@@ -9,11 +9,14 @@ pools padded with -inf. Layout is NCHW; parameter names are the
 reference's torch names (``inception3a.branch2.1.conv.weight``), so its
 ``state_dict`` is the reference checkpoint layout.
 
-This is the inference network: no aux heads, no dropout. Two inference
-transforms mirror the JAX package's: ``fused=True`` runs each inception
-block's three parallel 1x1 convs as one wide conv named ``fused0``, and
-``folded=True`` folds each BatchNorm into its conv's weight and bias
-(:func:`fold_inference`).
+This is the inference network: no aux heads, no dropout.
+``forward(x, dilated=True)`` runs the trunk a-trous (every stride-2 op at
+stride 1, later kernels dilated by the stride removed so far), which gives
+the dense full-resolution stride-32 feature field in one pass. Two
+inference transforms mirror the JAX package's: ``fused=True`` runs each
+inception block's three parallel 1x1 convs as one wide conv named
+``fused0``, and ``folded=True`` folds each BatchNorm into its conv's
+weight and bias (:func:`fold_inference`).
 """
 
 from __future__ import annotations
@@ -55,6 +58,19 @@ def _ceil_maxpool(x, window: int, stride: int):
     return F.max_pool2d(x, window, stride)
 
 
+def _dilated_maxpool(x, window: int, d: int, symmetric: bool = False):
+    """Stride-1 max pool with window dilation ``d`` in NCHW: the a-trous
+    form of the trunk's stride-2 ceil-mode pools (end-anchored: padded
+    with -inf after the input only) and, ``symmetric=True``, of the
+    inception pool branch (half the padding on each side).
+    ``F.max_pool2d``'s own padding is symmetric and at most half the
+    window, so the -inf padding is explicit."""
+    pad = (window - 1) * d
+    lo, hi = (pad // 2, pad - pad // 2) if symmetric else (0, pad)
+    x = F.pad(x, (lo, hi, lo, hi), value=-float("inf"))
+    return F.max_pool2d(x, window, stride=1, dilation=d)
+
+
 class BasicConv2d(nn.Module):
     """conv(bias=False) + BatchNorm(eps=1e-3) + ReLU, or, folded,
     conv(bias) + ReLU (reference: googlenet1.py:266-275)."""
@@ -66,8 +82,12 @@ class BasicConv2d(nn.Module):
                               bias=folded)
         self.bn = None if folded else nn.BatchNorm2d(cout, eps=BN_EPS)
 
-    def forward(self, x):
-        x = self.conv(x)
+    def forward(self, x, dilation: int = 1, stride_one: bool = False):
+        """``dilation`` dilates the kernel (and scales its padding);
+        ``stride_one`` runs a strided conv at stride 1: the a-trous trunk."""
+        c = self.conv
+        x = F.conv2d(x, c.weight, c.bias, 1 if stride_one else c.stride,
+                     c.padding[0] * dilation, dilation)
         if self.bn is not None:
             x = self.bn(x)
         return F.relu(x)
@@ -99,14 +119,18 @@ class Inception(nn.Module):
         self.branch4 = nn.Sequential(nn.MaxPool2d(3, stride=1, padding=1),
                                      conv(cin, pool_proj, 1))
 
-    def forward(self, x):
+    def forward(self, x, dilation: int = 1):
+        """``dilation`` > 1: the a-trous block, 3x3 convs dilated and the
+        pool branch's window dilated, padded with -inf on both sides."""
         if self.fused:
             b1, b2, b3 = torch.split(self.fused0(x), self.splits, dim=1)
         else:
             b1, b2, b3 = self.branch1(x), x, x
-        b2 = self.branch2(b2)
-        b3 = self.branch3(b3)
-        b4 = self.branch4(x)
+        b2 = self.branch2[1](self.branch2[0](b2), dilation)
+        b3 = self.branch3[1](self.branch3[0](b3), dilation)
+        pooled = (self.branch4[0](x) if dilation == 1
+                  else _dilated_maxpool(x, 3, dilation, symmetric=True))
+        b4 = self.branch4[1](pooled)
         return torch.cat([b1, b2, b3, b4], dim=1)
 
 
@@ -127,6 +151,10 @@ class GoogLeNet(nn.Module):
     exact CNN's fused kernels). ``start_pooled=True`` declares that ``x``
     has also been through stage ``start_stage``'s leading ceil-mode max
     pool (stages 3..5), which is then skipped.
+
+    ``dilated=True`` runs the trunk a-trous and returns the inception5b
+    features at full resolution, (N, 1024, H, W): algebraically the 1024
+    shift-and-stitch phases in one pass (apply the fc per position).
 
     ``model.to(torch.bfloat16)`` runs the trunk in bf16: each conv
     accumulates in f32 and rounds its output to bf16.
@@ -168,7 +196,11 @@ class GoogLeNet(nn.Module):
                 mod.reset_parameters()
 
     def forward(self, x, stage: int | None = None, features_only: bool = False,
-                start_stage: int = 1, start_pooled: bool = False):
+                start_stage: int = 1, start_pooled: bool = False,
+                dilated: bool = False):
+        if dilated:
+            return self._dilated_features(x)
+
         def runs(k):
             return stage in (None, k) and start_stage <= k
 
@@ -201,6 +233,23 @@ class GoogLeNet(nn.Module):
         if features_only:
             return x
         return self.fc(x.mean(dim=(2, 3)))
+
+    def _dilated_features(self, x):
+        """The a-trous trunk: conv1 at stride 1, each stride-2 pool at
+        stride 1 with its window dilated by the stride removed before it,
+        and every later 3x3 conv and inception pool dilated by the stride
+        removed so far (2, 4, 8, 16, 32)."""
+        x = self.conv1(x, stride_one=True)
+        x = _dilated_maxpool(x, 3, 2)
+        x = self.conv3(self.conv2(x), 4)
+        x = _dilated_maxpool(x, 3, 4)
+        x = self.inception3b(self.inception3a(x, 8), 8)
+        x = _dilated_maxpool(x, 3, 8)
+        for blk in (self.inception4a, self.inception4b, self.inception4c,
+                    self.inception4d, self.inception4e):
+            x = blk(x, 16)
+        x = _dilated_maxpool(x, 2, 16)
+        return self.inception5b(self.inception5a(x, 32), 32)
 
 
 _FUSED_BRANCHES = ("branch1", "branch2.0", "branch3.0")

@@ -255,9 +255,6 @@ def test_fcn_saliency_image_matches_jax(tmp_path, trained_band):
 def test_fcn_unported_methods_raise():
     model = GoogLeNet(num_classes=2, generator=torch.Generator().manual_seed(0))
     band = np.zeros((8, 8), np.float32)
-    for method in ("dilated", "phase-blocked"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfp.fcn_saliency_image(band, model, method=method, device="cpu")
     with pytest.raises(ValueError, match="scale == 32"):
         tfp.fcn_phase_saliency(fold_inference(model), torch.zeros(8, 8), scale=16)
     if not torch.cuda.is_available():

@@ -4,8 +4,9 @@ JAX package's end-to-end golden, tests/goldens/e2e_plumelist.npz.
 
 The golden is the case of tests/test_goldens.py::_e2e_plumelist_case: a
 96x32x425 synthetic cube, col_chunk=32, prob_thr=0.0, ppmm_thr=100.0,
-IME on. It was taken with the masks stage on; masks enter neither the
-plume list nor the IME, so the port runs without them.
+IME on. It was taken with the masks stage on, through the fused cmf+masks
+single read; masks enter neither the plume list nor the IME, so the port
+is held to it both with and without them.
 
 Tolerance: candidate ids and lat/lon exact (they follow from integer
 pixel positions), CMF ppm*m stats and IME masses rtol 1e-4, with the
@@ -74,12 +75,12 @@ def flightline(tmp_path_factory):
     return d, rdn, libf, wf
 
 
-def _run(flightline, outname, dtype, log=None):
-    d, rdn, libf, wf = flightline
+def _run(flightline, outname, dtype, log=None, rdn=None, **kw):
+    d, rdn0, libf, wf = flightline
     return pipeline_cli.run_flightline(
-        rdn, libf, wf, str(d / outname), prob_thr=0.0, ppmm_thr=100.0,
+        rdn or rdn0, libf, wf, str(d / outname), prob_thr=0.0, ppmm_thr=100.0,
         do_ime=True, col_chunk=32, dtype=dtype, device="cpu",
-        progress=(log.append if log is not None else (lambda *a: None)))
+        progress=(log.append if log is not None else (lambda *a: None)), **kw)
 
 
 @pytest.fixture(scope="module")
@@ -91,6 +92,14 @@ def run64(flightline):
 @pytest.fixture(scope="module")
 def run32(flightline):
     return _run(flightline, "out32", "float32")
+
+
+@pytest.fixture(scope="module")
+def run_masks(flightline):
+    """The golden's own configuration: the f32 pipeline with masks, which
+    runs the fused cmf+masks single read."""
+    log = []
+    return _run(flightline, "outmasks", "float32", log, do_masks=True), log
 
 
 def _plume_rows(prods):
@@ -178,10 +187,101 @@ def test_pipeline_cli_main_and_device_guard(flightline, run32, capsys):
 
 def test_pipeline_imports_no_jax():
     code = ("import sys, srcfinder_torch.flow.pipeline_cli, "
-            "srcfinder_torch.cmf.cli; "
+            "srcfinder_torch.cmf.cli, srcfinder_torch.masks.cli, "
+            "srcfinder_torch.detect.fcn_cli, srcfinder_torch.core.prefetch; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert 'srcfinder_tpu' not in sys.modules, 'srcfinder_tpu'")
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)
+
+
+def test_e2e_with_masks_matches_golden_and_jax(flightline, run32, run_masks):
+    """The fused cmf+masks read: the plume list equals the golden as the
+    unfused run's does, the CMF product equals the unfused run's bit for
+    bit, and the masks product equals the JAX package's
+    (run_flightline(do_masks=True) runs srcfinder_tpu.masks.cli.
+    masks_for_flightline on the host backend)."""
+    from srcfinder_tpu.masks.cli import masks_for_flightline as jmasks
+    prods, log = run_masks
+    assert [m for m in log if m.startswith("[STAGE]")][::2] == [
+        "[STAGE] cmf+masks (fused single-pass read)", "[STAGE] fcn",
+        "[STAGE] salience", "[STAGE] ime"]
+    assert set(prods["timers"]) == {"cmf+masks (fused single-pass read)", "read+masks",
+                                    "cmf phase", "fcn", "salience", "ime"}
+    ids, geo, ppmm, ime = _plume_rows(prods)
+    ids32, geo32, ppmm32, ime32 = _plume_rows(run32)
+    gold = np.load(GOLDEN)
+    np.testing.assert_array_equal(ids, gold["a00"])
+    np.testing.assert_array_equal(geo, gold["a01"])
+    np.testing.assert_array_equal(ppmm, ppmm32)
+    np.testing.assert_array_equal(ime, ime32)
+    np.testing.assert_array_equal(open_envi(prods["cmf"]).load(),
+                                  open_envi(run32["cmf"]).load())
+    d, rdn, _, _ = flightline
+    jname = jmasks(rdn + ".hdr", str(d), out_name="jax_msk",
+                   device=jax.devices("cpu")[0])
+    got = open_envi(prods["masks"]).load()
+    np.testing.assert_array_equal(got, open_envi(str(d / jname)).load())
+    assert got.shape == (96, 32, 4) and (got[0, 0] == -9999).all()
+    assert os.path.basename(prods["masks"]) == "ang20200924t211102_msk_v2y1_img"
+
+    rerun = []
+    again = _run(flightline, "outmasks", "float32", rerun, do_masks=True)
+    assert again["timers"] == {}
+    assert "[SKIP] masks exist: " + prods["masks"] in rerun
+    assert sum(m.startswith("[SKIP]") for m in rerun) == 5
+
+
+def test_masks_without_wavelengths_warn_and_skip(flightline, run32):
+    """No wavelength list: the masks are skipped with a warning before any
+    device work, and the CMF is still written (its own read)."""
+    from srcfinder_torch.core.envi import read_header, write_header
+    d, rdn, _, _ = flightline
+    bare = str(d / "ang20200924t211102_rdn_v2y1_nowl")
+    meta = read_header(rdn + ".hdr")
+    meta.pop("wavelength")
+    write_header(bare + ".hdr", meta)
+    os.symlink(rdn, bare)
+    log = []
+    prods = _run(flightline, "outnowl", "float32", log, rdn=bare, do_masks=True)
+    assert any(m.startswith("[WARN] masks skipped: no wavelength") for m in log)
+    assert prods["masks"] is None
+    assert "[STAGE] cmf" in log and "masks" not in "".join(prods["timers"])
+    np.testing.assert_array_equal(open_envi(prods["cmf"]).load(),
+                                  open_envi(run32["cmf"]).load())
+
+
+def test_masks_device_error_propagates(flightline, monkeypatch):
+    """An error of the masks' device work (a RuntimeError, as a CUDA fault
+    or an out-of-memory error is) propagates instead of being warn-skipped."""
+    from srcfinder_torch.masks import sds
+
+    def broken(*a, **k):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+    monkeypatch.setattr(sds, "pixel_masks", broken)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        _run(flightline, "outbroken", "float32", do_masks=True)
+
+
+def test_pipeline_cli_bf16_dilated(flightline, run32, capsys):
+    """--fcn-dtype bfloat16 --method dilated through main: the same
+    candidates as the f32 phase run, saliency within 2e-2 of it."""
+    d, rdn, libf, wf = flightline
+    out = d / "outbf16"
+    os.makedirs(out)
+    for f in os.listdir(d / "out32"):              # reuse the f32 CMF
+        if "_cmf_v2y1_img" in f and "saliency" not in f and "detections" not in f \
+                and not f.endswith("_ime.csv"):
+            os.symlink(d / "out32" / f, out / f)
+    rc = pipeline_cli.main([rdn, "--library", libf, "--weights", wf, "-o", str(out),
+                            "--prob_thr", "0.0", "--ppmm_thr", "100", "--col_chunk", "32",
+                            "--fcn-dtype", "bfloat16", "--method", "dilated",
+                            "--device", "cpu"])
+    assert rc == 0
+    assert "[SKIP] CMF exists" in capsys.readouterr().out
+    sal = open_envi(str(out / "ang20200924t211102_cmf_v2y1_img_saliency")).load()
+    ref = open_envi(run32["saliency"]).load()
+    np.testing.assert_array_equal(sal == -9999.0, ref == -9999.0)
+    assert np.abs(sal - ref).max() < 2e-2
