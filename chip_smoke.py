@@ -10,8 +10,9 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    source, all started together), print each kernel's registers and
    spills (ptxas -v) and count the tensor-core instructions (HMMA,
    HGMMA, DMMA) in the SASS of each kernel of the built libraries
-   (cuobjdump); the trunk library must have some, and the f64 LOOCV
-   kernel (loo_kernel<double>) must have DMMA.
+   (cuobjdump); the trunk library must have some, P2's bf16 front kernel
+   (front_kernel<bf16>) HGMMA, and the f64 LOOCV kernel
+   (loo_kernel<double>) DMMA.
 2. The bf16 convolutions of trunk_s23 and trunk_s45, one by one: every
    distinct conv the two segments launch (srcfinder_torch.ops.trunk_fuse.
    conv_plan) at the CLI's configuration (4096 windows of 256 x 256, in
@@ -20,7 +21,10 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    plain conv in bf16 (TRUNK_TOL), with channels outside the written ones
    left as they were. Prints ms, achieved TFLOP/s and the tile the
    dispatch picked for each (it must be the tensor-core kernel's). Then
-   trunk_s45 on 3 windows, whose last blocks end in a ragged row tile.
+   trunk_s45 on 3 windows, whose last blocks end in a ragged row tile, and
+   P2's layers one by one (front kernel, conv3, pool2: device ms of each
+   in a profiled call at 512 windows in f32 and bf16 and at 4096 in bf16,
+   on seeded windows and weights).
 3. Kernels against their plain PyTorch versions on the card, at the
    shapes of one full-scene CMF column chunk (2801 lines x 256 columns x
    72 active bands, 201 alphas), in float32 and float64, and on 8 of its
@@ -43,30 +47,37 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    list and IME CSV written) and prints stage seconds and peak device
    memory.
 5. The exact dense CNN's trunk kernels (fused_stage12, trunk_s23,
-   trunk_s45) against their plain versions, on windows of 256 x 256
-   gathered from a 16-line strip cut through the plume of the scene's CMF
-   ppm*m band and preprocessed: 512 windows in float32 and bfloat16, and
-   trunk_s23 / trunk_s45 at the CLI's own configuration (bfloat16, 4096
-   windows, where trunk_s23 runs as sub-batches). The segment inputs are
-   the plain route's own intermediates. GoogLeNet weights are
+   trunk_s3, trunk_s45) against their plain versions, on windows of 256 x
+   256 gathered from a 16-line strip cut through the plume of the scene's
+   CMF ppm*m band and preprocessed: 512 windows in float32 and bfloat16,
+   and all four at the CLI's own configuration (bfloat16, 4096 windows,
+   where trunk_s23 and trunk_s3 run as sub-batches). The segment inputs
+   are the plain route's own intermediates. GoogLeNet weights are
    "trained-like" (conv and fc std sqrt(1 / fan_in), BatchNorm perturbed;
    torch.Generator seed 256), so activations stay O(1). Prints errors,
    kernel / plain / cuDNN-model times (CUDA events) and each kernel's
-   bound.
+   bound. fused_stage12's gather form, reading the windows from the padded
+   strip, must equal the contiguous form bit for bit, and two launches of
+   each kernel must agree bit for bit; P2 on 3 windows at D = 40 (ragged
+   front tiles), 64 and 256 in both dtypes within TRUNK_TOL.
 6. The exact path on that strip (16 lines x 598 samples = 9,568 windows;
    only the scene's line count is cut, the window, the model's widths and
    the batches are real): srcfinder_torch.detect.cnn_cli at its defaults
-   (bfloat16, trunk "segments", batch 4096; the main path), held within
-   CLI_TOL of the plain route in bfloat16 at batch 4096; then
-   cnn_saliency_image in float32 with each trunk route at batch 512 and
-   with "segments" at batch 4096 (kernel routes must agree with "plain"
-   within 1e-5 in probability), then the fast method. Each run zeroes the
-   launch counters just before and reads them just after, and must have
-   launched exactly its route's trunk kernels. Prints seconds, windows/s,
-   peak device memory, launches and a full-scene projection for each run,
-   and profiles the default route in f32 and the CLI's configuration
-   (whose profile must name the tensor-core conv kernel), with branch 4's
-   device time in each.
+   (bfloat16, batch 4096, the default trunk route; the main path), held
+   within CLI_TOL of the plain route in bfloat16 at batch 4096, and the
+   other of the "stage12" and "segments" routes in the same
+   configuration, held the same way; then cnn_saliency_image in float32
+   with each trunk route at batch 512 and with "segments" at batch 4096
+   (kernel routes must agree with "plain" within 1e-5 in probability),
+   then the fast method. Each run zeroes the launch counters just before
+   and reads them just after, and must have launched exactly its route's
+   trunk kernels. Prints seconds, windows/s, peak device memory, launches
+   and a full-scene projection for each run. Profiles the default route
+   in f32 and both kernel routes in the CLI's configuration (device-busy
+   ms, idle share, peak memory; the segments profile must name the
+   tensor-core conv kernel, the stage12 profile the front kernel and no
+   cuDNN convolution), with branch 4's device time in each; the default
+   route must be the one with less device-busy time.
 
 7. The FCN's other paths on the scene's CMF ppm*m band (2801 x 598),
    with the trained-like weights of phase 5 unless said otherwise (ms and
@@ -105,9 +116,11 @@ Any failed phase exits non-zero without the result line. The last line
 of standard output is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --cmf-times TREE
+    python3 chip_smoke.py --trunk-times TREE
 
-only times the CMF kernels of TREE's srcfinder_torch on phase 3's inputs
-(see cmf_times), for a same-call A/B of two commits.
+only time the CMF kernels (on phase 3's inputs; see cmf_times) or P2,
+fused_stage12 (on seeded windows; see trunk_times), of TREE's
+srcfinder_torch, for a same-call A/B of two commits.
 """
 
 from __future__ import annotations
@@ -142,20 +155,27 @@ TOL = {"float32": 1e-5, "float64": 1e-12}           # max |err| / max |ref|
 WIN, STRIP_LINES = 256, 16
 CLI_BATCH = 4096                   # cnn_cli's default --batch
 TRUNK_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-TRUNK_KERNELS = ("fused_stage12", "trunk_s23", "trunk_s45")
-# (dtype, windows, kernels) of the trunk-kernel comparisons: 512 windows in
-# both dtypes, and the CLI's own configuration (bf16, batch 4096), where
-# trunk_s23 runs as three sub-batches of its scratch budget
-TRUNK_CONFIGS = (("float32", 512, TRUNK_KERNELS), ("bfloat16", 512, TRUNK_KERNELS),
-                 ("bfloat16", CLI_BATCH, ("trunk_s23", "trunk_s45")))
+TRUNK_KERNELS = ("fused_stage12", "trunk_s23", "trunk_s3", "trunk_s45")
+# (dtype, windows) of the trunk-kernel comparisons: 512 windows in both
+# dtypes, and the CLI's own configuration (bf16, batch 4096), where
+# trunk_s23 runs as three sub-batches of its scratch budget and trunk_s3
+# as two
+TRUNK_CONFIGS = (("float32", 512), ("bfloat16", 512), ("bfloat16", CLI_BATCH))
 # the trunk kernels each route launches
 ROUTE_KERNELS = {"segments": ("trunk_s23", "trunk_s45"),
-                 "stage12": ("fused_stage12", "trunk_s45"), "plain": ()}
-# the run of the exact-CNN phase whose launches a kernel reports: the
-# CLI's default path, and for fused_stage12 (on no default path) the
-# stage12 route
-KERNEL_RUN = {"fused_stage12": "f32_stage12_b512", "trunk_s23": "cli_bf16_segments_b4096",
-              "trunk_s45": "cli_bf16_segments_b4096"}
+                 "stage12": ("fused_stage12", "trunk_s3", "trunk_s45"), "plain": ()}
+# P2's side of each 3-window check: 40 leaves ragged 8 x 8 front tiles
+STAGE12_SMALL = (40, 64, 256)
+
+
+def kernel_run(kernel, default):
+    """The run of the exact-CNN phase whose launches ``kernel`` reports:
+    the CLI's (the default route at bf16, batch 4096) where that route
+    launches it, else the other kernel route's run in the same
+    configuration."""
+    route = default if kernel in ROUTE_KERNELS[default] else next(
+        r for r in ("stage12", "segments") if kernel in ROUTE_KERNELS[r])
+    return f"{'cli_' if route == default else ''}bf16_{route}_b{CLI_BATCH}"
 ROUTE_TOL = 1e-5                   # kernel route vs plain route, probability
 # the CLI (bf16 kernels) vs the plain route in bf16 at the same batch, in
 # probability: each is a bf16 rounding of the same f32 forward, and the
@@ -604,6 +624,63 @@ def phase_conv_shapes():
     return rows
 
 
+def seeded_params(gen, name, dtype):
+    """Weights of entry point ``name`` of the trunk kernels from ``gen``:
+    kernels std sqrt(1 / fan_in), biases std 0.2."""
+    import torch
+    from srcfinder_torch.ops import trunk_fuse as tf
+    return [(torch.randn(s, generator=gen, device="cuda")
+             * (0.2 if s[0] == 1 else math.prod(s[:-1]) ** -0.5)).to(dtype)
+            for s in tf._SHAPES[name]]
+
+
+def stage12_layer_work(n, d):
+    """{layer: (operations, elements moved)} of P2's three launches over n
+    windows of side d: the front kernel (window in, conv2's map out,
+    conv1's and conv2's weights), conv3 (conv2's map in, its own out,
+    weights) and pool2."""
+    o1, h, w1 = _conv_count(n, d, 1, 64, 7, 2)
+    p1, h = _pool_count(n, h, 64, 3, 2)
+    o2, _, w2 = _conv_count(n, h, 64, 64, 1)
+    o3, _, w3 = _conv_count(n, h, 64, 192, 3)
+    p2, h2 = _pool_count(n, h, 192, 3, 2)
+    c2, c3 = n * h * h * 64, n * h * h * 192
+    return {"front": (o1 + p1 + o2, n * d * d + c2 + w1 + w2), "conv3": (o3, c2 + c3 + w3),
+            "pool2": (p2, c3 + n * h2 * h2 * 192)}
+
+
+def stage12_layers():
+    """P2's launches one by one (phase 2): device ms of the front kernel,
+    conv3 and pool2 in one profiled fused_stage12 call, in each of
+    TRUNK_CONFIGS, on seeded windows and weights, each beside its bound."""
+    import torch
+    from srcfinder_torch.ops import trunk_fuse as tf
+    gen = torch.Generator(device="cuda").manual_seed(1212)
+    family = {"front": ("front_kernel",), "conv3": ("conv_wgmma_kernel", "conv_kernel"),
+              "pool2": ("maxpool_kernel",)}
+    out = {}
+    for dname, n in TRUNK_CONFIGS:
+        dtype = getattr(torch, dname)
+        p = tf.pack_params("fused_stage12", seeded_params(gen, "fused_stage12", dtype))
+        wins = torch.randn(n, WIN, WIN, 1, generator=gen, device="cuda").to(dtype)
+        with torch.no_grad():
+            tf.fused_stage12(wins, p)
+            prof = device_profile(lambda: tf.fused_stage12(wins, p))
+        layers = {}
+        for layer, (ops, elems) in stage12_layer_work(n, WIN).items():
+            ms = sum(prof["families_ms"].get(f, 0.0) for f in family[layer])
+            bound = max(elems * (torch.finfo(dtype).bits // 8) / PEAK_BYTES,
+                        ops / PEAK_FLOPS[dname]) * 1e3
+            layers[layer] = dict(ms=ms, bound_ms=bound, share_of_bound=bound / ms if ms else None)
+        out[f"{dname}_b{n}"] = dict(layers=layers, device_busy_ms=prof["device_busy_ms"],
+                                    families_ms=prof["families_ms"])
+        if not all(v["ms"] > 0 for v in layers.values()):
+            fail(f"fused_stage12 {dname}_b{n}: the profile misses a launch: {prof['top']}")
+        del wins, p
+        torch.cuda.empty_cache()
+    print(json.dumps({"stage12_layers": out, "window": WIN}))
+
+
 def write_scene(workdir, gen):
     """Seeded AVIRIS-NG-shaped radiance (BIL f32) with a plume in the CH4
     window, written in line blocks; plus the CH4 unit-absorption library."""
@@ -740,10 +817,26 @@ def branch4_ms(events):
                and kind[i + 1] == "conv") / 1e3
 
 
+# device functions by family: the first pattern a name matches; cuDNN's
+# convolutions and its layout transposes are "cudnn_conv"
+KERNEL_FAMILIES = (("front_kernel", r"front_kernel"), ("conv_wgmma_kernel", r"conv_wgmma_kernel"),
+                   ("conv_kernel", r"conv_kernel"), ("maxpool_kernel", r"maxpool_kernel"),
+                   ("gap_kernel", r"gap_kernel"),
+                   ("cudnn_conv", r"fprop|dgrad|wgrad|convolve|cudnn|nchwToNhwc|nhwcToNchw|"
+                                  r"implicit_gemm|conv2d|xmma_conv"),
+                   ("torch_pool", r"max_pool|pooling"), ("gemm", r"gemm"),
+                   ("copy", r"^Memcpy|^Memset"))
+
+
+def kernel_family(name):
+    return next((f for f, pat in KERNEL_FAMILIES if re.search(pat, name)), "other")
+
+
 def device_profile(fn):
     """One profiled call of ``fn()``: wall time, device-busy time (sum of
     kernel and copy time), idle share, peak memory, the busiest device
-    functions and the trunk kernels' branch 4 (``branch4_ms``)."""
+    functions, device ms by KERNEL_FAMILIES and the trunk kernels' branch
+    4 (``branch4_ms``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -764,10 +857,14 @@ def device_profile(fn):
         by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     rows = sorted(((k[:90], t, n) for k, (t, n) in by_name.items()), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    families = {}
+    for k, (t, _) in by_name.items():
+        f = kernel_family(k)
+        families[f] = families.get(f, 0.0) + t
     b4 = branch4_ms(events)
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
                 peak_mem_bytes=torch.cuda.max_memory_allocated(), top=rows[:12],
-                branch4_ms=b4, branch4_share=b4 / busy_ms)
+                families_ms=families, branch4_ms=b4, branch4_share=b4 / busy_ms)
 
 
 def profile_stages(rdn, libf, wf, cmf_product, workdir):
@@ -870,6 +967,14 @@ def trunk_work(name, n, d):
         o3, _, w3 = _conv_count(n, h, 64, 192, 3)
         p2, h = _pool_count(n, h, 192, 3, 2)
         return o1 + p1 + o2 + o3 + p2, n * d * d, n * h * h * 192, w1 + w2 + w3
+    if name == "trunk_s3":
+        g = h = d // 8
+        c = 192
+        for blk in _BLOCKS["s3"]:
+            o, w, c = _inception_count(n, h, blk)
+            ops, wts = ops + o, wts + w
+        p3, h = _pool_count(n, h, c, 3, 2)
+        return ops + p3, n * g * g * 192, n * h * h * c, wts
     if name == "trunk_s23":
         h_in = h = d // 2
         p1, h = _pool_count(n, h, 64, 3, 2)
@@ -893,9 +998,11 @@ def trunk_work(name, n, d):
 
 
 def phase_trunk_kernels(strip, wf):
-    """fused_stage12, trunk_s23 and trunk_s45 against their plain versions
-    in each of TRUNK_CONFIGS, on windows of the preprocessed strip; weights
-    packed once, as the window loop passes them."""
+    """The trunk kernels against their plain versions in each of
+    TRUNK_CONFIGS, on windows of the preprocessed strip; weights packed
+    once, as the window loop passes them. fused_stage12's gather form on
+    the padded strip against its contiguous form, and P2 on 3 windows at
+    each side of STAGE12_SMALL."""
     import numpy as np
     import torch
     from srcfinder_torch.core.envi import open_envi
@@ -910,7 +1017,8 @@ def phase_trunk_kernels(strip, wf):
     band = torch.tensor(np.asarray(open_envi(strip).read_band(0), np.float32),
                         device="cuda")
     x = preprocess_ch4(band, *norm_for_model("COVID_QC"))
-    padded = reference_pad(x, WIN).unfold(0, WIN, 1).unfold(1, WIN, 1)
+    scene = reference_pad(x, WIN)
+    padded = scene.unfold(0, WIN, 1).unfold(1, WIN, 1)
     model = GoogLeNet(num_classes=2)
     model.load_state_dict(load_weights(wf))
     model32 = fold_inference(model.eval()).cuda()
@@ -921,30 +1029,37 @@ def phase_trunk_kernels(strip, wf):
     def nchw(t):
         return t.permute(0, 3, 1, 2).contiguous()
 
-    results = {}
-    for dname, n, names in TRUNK_CONFIGS:
+    results, small = {}, {}
+    for dname, n in TRUNK_CONFIGS:
         dtype = getattr(torch, dname)
         m = model32.to(dtype)      # in place: TRUNK_CONFIGS runs float32 first
         sd = m.state_dict()
         idx = torch.linspace(0, x.numel() - 1, n, device="cuda").long()
-        wins = padded[idx // x.shape[1], idx % x.shape[1]].contiguous().to(dtype)
+        origins = torch.stack([idx // x.shape[1], idx % x.shape[1]], dim=1)
+        wins = padded[origins[:, 0], origins[:, 1]].contiguous().to(dtype)
+        plane = scene.to(dtype)
         params = {"fused_stage12": tf.pack_params("fused_stage12", tf.stage12_params(sd)),
                   "trunk_s23": tf.pack_params("trunk_s23", tf.trunk_segment_params(sd, "s23")),
+                  "trunk_s3": tf.pack_params("trunk_s3", tf.trunk_segment_params(sd, "s3")),
                   "trunk_s45": tf.pack_params("trunk_s45", tf.trunk_segment_params(sd, "s45"))}
         with torch.no_grad():
             c1 = nhwc(m(wins[:, None], stage=1))
+            x12 = tf.fused_stage12_ref(wins, params["fused_stage12"])
             x23 = tf.trunk_s23_ref(c1, params["trunk_s23"])
         cases = {
             "fused_stage12": (tf.fused_stage12, tf.fused_stage12_ref, wins[..., None].contiguous(),
                               lambda t: nhwc(_ceil_maxpool(m(m(nchw(t), stage=1), stage=2), 3, 2))),
             "trunk_s23": (tf.trunk_s23, tf.trunk_s23_ref, c1,
                           lambda t: nhwc(_ceil_maxpool(m(m(nchw(t), stage=2), stage=3), 3, 2))),
+            "trunk_s3": (tf.trunk_s3, tf.trunk_s3_ref, x12,
+                         lambda t: nhwc(_ceil_maxpool(m(nchw(t), stage=3, start_stage=3,
+                                                        start_pooled=True), 3, 2))),
             "trunk_s45": (tf.trunk_s45, tf.trunk_s45_ref, x23,
                           lambda t: m(m(nchw(t), stage=4, start_stage=4, start_pooled=True),
                                       stage=5, start_stage=5).mean(dim=(2, 3)))}
         s = torch.finfo(dtype).bits // 8
         tag = f"{dname}_b{n}"
-        for name in names:
+        for name in TRUNK_KERNELS:
             kern, plain, inp, library = cases[name]
             p = params[name]
             with torch.no_grad():
@@ -955,9 +1070,15 @@ def phase_trunk_kernels(strip, wf):
                 abs_err = (got.float() - ref.float()).abs().max().item()
                 k = dict(max_abs_err=abs_err, max_rel_err=abs_err / ref_max,
                          ref_max=ref_max, tol=TRUNK_TOL[dname],
+                         bit_identical=bit_identical(lambda: (kern(inp, p),)),
                          ms=cuda_ms(lambda: kern(inp, p), reps=3),
                          plain_ms=cuda_ms(lambda: plain(inp, p), reps=3),
                          library_ms=cuda_ms(lambda: library(inp), reps=3))
+                if name == "fused_stage12":
+                    k["gather_equal"] = torch.equal(
+                        tf.fused_stage12_gather(plane, origins, WIN, p), got)
+                    k["gather_ms"] = cuda_ms(
+                        lambda: tf.fused_stage12_gather(plane, origins, WIN, p), reps=3)
                 del got, ref
             ops, n_in, n_out, n_w = trunk_work(name, n, WIN)
             k["ops"], k["bytes"] = ops, s * (n_in + n_out + n_w)
@@ -968,21 +1089,46 @@ def phase_trunk_kernels(strip, wf):
             if not k["max_rel_err"] <= TRUNK_TOL[dname]:
                 fail(f"{name} {tag}: relative error {k['max_rel_err']:.3g} "
                      f"> {TRUNK_TOL[dname]:g}")
+            if not k["bit_identical"]:
+                fail(f"{name} {tag}: two launches on one input differ")
+            if not k.get("gather_equal", True):
+                fail(f"fused_stage12 {tag}: the gather form differs from the contiguous form")
             results[(name, tag)] = k
-        del c1, x23, cases, wins, params
+        del c1, x12, x23, cases, wins, params
         torch.cuda.empty_cache()
+        if n == CLI_BATCH:
+            continue
+        # P2 on 3 windows (the strip's first, middle and last pixel) at
+        # other window sides: the gather form against the contiguous form
+        # and the plain version
+        p = tf.pack_params("fused_stage12", tf.stage12_params(sd))
+        org = origins[[0, n // 2, n - 1]]
+        for d in STAGE12_SMALL:
+            plane_d = reference_pad(x, d).to(dtype)
+            with torch.no_grad():
+                got = tf.fused_stage12_gather(plane_d, org, d, p)
+                wins_d = tf._windows(plane_d, org, d)[..., None].contiguous()
+                same = torch.equal(tf.fused_stage12(wins_d, p), got)
+                ref = tf.fused_stage12_ref(wins_d, p)
+            rel = max_abs_diff(got, ref) / ref.float().abs().max().item()
+            small[f"{dname}_d{d}"] = dict(max_rel_err=rel, gather_equal=same)
+            if not (rel <= TRUNK_TOL[dname] and same):
+                fail(f"fused_stage12 {dname} on 3 windows of side {d}: relative error "
+                     f"{rel:.3g}, gather form equal to the contiguous form: {same}")
     print(json.dumps({"trunk_kernels": {f"{n} {t}": v for (n, t), v in results.items()},
-                      "window": WIN}))
+                      "stage12_3_windows": small, "window": WIN}))
     return results
 
 
 def phase_exact_cnn(workdir, strip, wf):
     """The exact dense CNN on the strip: the CLI at its defaults (the main
-    path) and the plain route in its configuration, each trunk route in
-    f32, the segments route at the CLI's batch in f32, the fast method.
-    Each run zeroes the trunk kernels' launch counters just before and
-    reads them just after. Returns {kernel: (run, launches)} from the run
-    of each kernel's path (KERNEL_RUN)."""
+    path), the other kernel route and the plain route in its
+    configuration, each trunk route in f32, the segments route at the
+    CLI's batch in f32, the fast method. Each run zeroes the trunk kernels'
+    launch counters just before and reads them just after. Returns
+    {kernel: (run, launches)} from the run of each kernel's path
+    (kernel_run)."""
+    import inspect
     import numpy as np
     import torch
     from srcfinder_torch.core.envi import open_envi
@@ -999,6 +1145,9 @@ def phase_exact_cnn(workdir, strip, wf):
     model.load_state_dict(load_weights(wf))
     out = os.path.join(workdir, "cnn_out")
     bf16 = torch.bfloat16
+    default = inspect.signature(cnn_saliency_image).parameters["trunk"].default
+    other = "segments" if default == "stage12" else "stage12"
+    cli_tag = f"cli_bf16_{default}_b{CLI_BATCH}"
 
     def check(sal, what):
         if sal.shape != band.shape or not (sal[nodata] == -9999.0).all():
@@ -1015,10 +1164,9 @@ def phase_exact_cnn(workdir, strip, wf):
     # launches; outside the counted runs
     for trunk in TRUNKS:
         cnn_saliency_image(band[:1], model, trunk=trunk, device="cuda")
-    for trunk in ("segments", "plain"):
-        cnn_saliency_image(band[:1], model, batch=4096, dtype=bf16, trunk=trunk,
+        cnn_saliency_image(band[:1], model, batch=CLI_BATCH, dtype=bf16, trunk=trunk,
                            device="cuda")
-    cnn_saliency_image(band[:1], model, batch=4096, device="cuda")
+    cnn_saliency_image(band[:1], model, batch=CLI_BATCH, trunk="segments", device="cuda")
     torch.cuda.synchronize()
 
     stats, sals = {}, {}
@@ -1037,61 +1185,76 @@ def phase_exact_cnn(workdir, strip, wf):
         stats[tag] = dict(s=s, windows_per_s=n_win / s,
                           peak_mem_bytes=torch.cuda.max_memory_allocated(),
                           projected_full_scene_s=s * SCENE[0] / STRIP_LINES,
-                          launches=counts)
+                          launches=counts, route=trunk)
         launched = sorted(k for k, c in counts.items() if c > 0)
         if launched != sorted(ROUTE_KERNELS[trunk]):
             fail(f"{tag}: launched {launched}, trunk {trunk} launches "
                  f"{sorted(ROUTE_KERNELS[trunk])}")
         return res
 
-    rc = run(KERNEL_RUN["trunk_s23"],
-             lambda: cnn_cli.main([strip, "-n", "1", "-w", wf, "-o", out]), "segments")
+    rc = run(cli_tag, lambda: cnn_cli.main([strip, "-n", "1", "-w", wf, "-o", out]), default)
     if rc != 0:
         fail(f"cnn_cli exited {rc}")
     cli_sal = open_envi(os.path.join(out, os.path.basename(strip) + "_saliency")).load()[..., 0]
     check(cli_sal, "cnn_cli")
-    sals["bf16_plain_b4096"] = run("bf16_plain_b4096", lambda: saliency(
-        batch=4096, dtype=bf16, trunk="plain"), "plain")
+    sals[f"bf16_{other}_b{CLI_BATCH}"] = run(f"bf16_{other}_b{CLI_BATCH}", lambda: saliency(
+        batch=CLI_BATCH, dtype=bf16, trunk=other), other)
+    sals[f"bf16_plain_b{CLI_BATCH}"] = run(f"bf16_plain_b{CLI_BATCH}", lambda: saliency(
+        batch=CLI_BATCH, dtype=bf16, trunk="plain"), "plain")
     for trunk in TRUNKS:
         sals[f"f32_{trunk}_b512"] = run(f"f32_{trunk}_b512", lambda: saliency(
             batch=512, trunk=trunk), trunk)
-    sals["f32_segments_b4096"] = run("f32_segments_b4096", lambda: saliency(
-        batch=4096), "segments")
+    sals[f"f32_segments_b{CLI_BATCH}"] = run(f"f32_segments_b{CLI_BATCH}", lambda: saliency(
+        batch=CLI_BATCH, trunk="segments"), "segments")
     sals["f32_fast"] = run("f32_fast", lambda: saliency(method="fast"), "plain")
     for tag, sal in sals.items():
         check(sal, tag)
 
     # where the time goes: one profiled pass of the default route in f32
-    # and of the CLI's configuration (bf16, batch 4096)
-    profiles = {
-        "f32_segments_b512": device_profile(lambda: saliency(batch=512)),
-        "bf16_segments_b4096": device_profile(lambda: saliency(batch=4096, dtype=bf16))}
+    # and of both kernel routes in the CLI's configuration (bf16, batch 4096)
+    profiles = {f"f32_{default}_b512": device_profile(lambda: saliency(batch=512))}
+    for trunk in ("segments", "stage12"):
+        profiles[f"bf16_{trunk}_b{CLI_BATCH}"] = device_profile(
+            lambda: saliency(batch=CLI_BATCH, dtype=bf16, trunk=trunk))
     valid = ~nodata
 
     def diff(a, b):
         return float(np.abs(a[valid] - b[valid]).max())
     plain = sals["f32_plain_b512"]
     diffs = {t: diff(sals[t], plain)
-             for t in ("f32_segments_b512", "f32_stage12_b512", "f32_segments_b4096")}
-    cli_diff = diff(cli_sal, sals["bf16_plain_b4096"])
+             for t in ("f32_segments_b512", "f32_stage12_b512", f"f32_segments_b{CLI_BATCH}")}
+    bf16_plain = sals[f"bf16_plain_b{CLI_BATCH}"]
+    bf16_diffs = {cli_tag: diff(cli_sal, bf16_plain),
+                  f"bf16_{other}_b{CLI_BATCH}": diff(sals[f"bf16_{other}_b{CLI_BATCH}"],
+                                                     bf16_plain)}
+    busy = {t: profiles[f"bf16_{t}_b{CLI_BATCH}"]["device_busy_ms"]
+            for t in ("segments", "stage12")}
     print(json.dumps({"exact_cnn": dict(
-        strip=[STRIP_LINES, band.shape[1]], windows=n_win, stats=stats,
-        route_vs_plain_max_abs=diffs, cli_vs_bf16_plain_b4096_max_abs=cli_diff,
+        strip=[STRIP_LINES, band.shape[1]], windows=n_win, default_route=default, stats=stats,
+        route_vs_plain_max_abs=diffs, bf16_route_vs_bf16_plain_max_abs=bf16_diffs,
         cli_tol=CLI_TOL, cli_bf16_vs_f32_plain_max_abs=diff(cli_sal, plain),
         fast_vs_exact_max_abs=diff(sals["f32_fast"], plain),
         saliency=dict(min=float(plain[valid].min()), max=float(plain[valid].max()),
                       std=float(plain[valid].std())),
-        profile=profiles)}))
-    top = [r[0] for r in profiles["bf16_segments_b4096"]["top"]]
-    if not any("conv_wgmma_kernel" in t for t in top):
-        fail(f"the CLI configuration's profile names no tensor-core conv kernel: {top}")
+        bf16_device_busy_ms=busy, profile=profiles)}))
+    seg, s12 = profiles[f"bf16_segments_b{CLI_BATCH}"], profiles[f"bf16_stage12_b{CLI_BATCH}"]
+    if not seg["families_ms"].get("conv_wgmma_kernel"):
+        fail(f"the segments route's bf16 profile names no tensor-core conv kernel: {seg['top']}")
+    if not s12["families_ms"].get("front_kernel") or s12["families_ms"].get("cudnn_conv"):
+        fail(f"the stage12 route's bf16 profile must name the front kernel and no cuDNN "
+             f"convolution: {s12['families_ms']}")
+    if not busy[default] <= busy[other]:
+        fail(f"the default route {default} is busier on the device than {other} at bf16, "
+             f"batch {CLI_BATCH}: {busy}")
     for t, d in diffs.items():
         if not d <= ROUTE_TOL:
             fail(f"{t} differs from the plain route by {d:.3g} > {ROUTE_TOL:g}")
-    if not cli_diff <= CLI_TOL:
-        fail(f"cnn_cli differs from the bf16 plain route at batch 4096 by "
-             f"{cli_diff:.3g} > {CLI_TOL:g}")
-    return {k: (r, stats[r]["launches"][k]) for k, r in KERNEL_RUN.items()}
+    for t, d in bf16_diffs.items():
+        if not d <= CLI_TOL:
+            fail(f"{t} differs from the bf16 plain route at batch {CLI_BATCH} by "
+                 f"{d:.3g} > {CLI_TOL:g}")
+    return {k: (kernel_run(k, default), stats[kernel_run(k, default)]["launches"][k])
+            for k in TRUNK_KERNELS}
 
 
 def _timed(stats, tag, fn):
@@ -1437,9 +1600,49 @@ def cmf_times(tree):
     print(json.dumps({"cmf_times": out, "tree": tree, "gpu": nvidia_smi_line()}))
 
 
+def trunk_times(tree):
+    """Same-call A/B of P2: ``python3 chip_smoke.py --trunk-times TREE``
+    times fused_stage12 (contiguous windows) of TREE's srcfinder_torch in
+    each of TRUNK_CONFIGS on seeded windows and weights (identical in
+    every call), with its error against TREE's plain version, and prints
+    one JSON line. Run it on two trees in turns within one call (old, new,
+    new, old)."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from srcfinder_torch.device import resolve_device
+    from srcfinder_torch.ops import build, trunk_fuse as tf
+    if not tf.__file__.startswith(tree):
+        fail(f"srcfinder_torch was not imported from {tree}")
+    resolve_device("cuda")                     # TF32 off for the plain version
+    build.build_all([tf.KERNEL])
+    gen = torch.Generator(device="cuda").manual_seed(612)
+    out = {}
+    for dname, n in TRUNK_CONFIGS:
+        dtype = getattr(torch, dname)
+        p = tf.pack_params("fused_stage12", seeded_params(gen, "fused_stage12", dtype))
+        wins = torch.randn(n, WIN, WIN, 1, generator=gen, device="cuda").to(dtype)
+        with torch.no_grad():
+            got, ref = tf.fused_stage12(wins, p), tf.fused_stage12_ref(wins, p)
+            rel = max_abs_diff(got, ref) / ref.float().abs().max().item()
+            ms = cuda_ms(lambda: tf.fused_stage12(wins, p), reps=20)
+        ops, n_in, n_out, n_w = trunk_work("fused_stage12", n, WIN)
+        bound = max(ops / PEAK_FLOPS[dname],
+                    (n_in + n_out + n_w) * (torch.finfo(dtype).bits // 8) / PEAK_BYTES) * 1e3
+        out[f"{dname}_b{n}"] = dict(ms=ms, bound_ms=bound, share_of_bound=bound / ms,
+                                    max_rel_err=rel)
+        del wins, p, got, ref
+        torch.cuda.empty_cache()
+    print(json.dumps({"trunk_times": out, "tree": tree, "gpu": nvidia_smi_line()}))
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--cmf-times":
         return cmf_times(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--trunk-times":
+        return trunk_times(sys.argv[2])
     if not os.path.isdir(os.path.join(HERE, "srcfinder_torch")):
         fail("srcfinder_torch/ is not next to chip_smoke.py")
     sys.path.insert(0, HERE)
@@ -1461,10 +1664,13 @@ def main():
     print(json.dumps({"sass_mma": sass}))
     if not sum(sum(c.values()) for c in sass["trunk"].values()):
         fail("no HMMA/HGMMA instruction in the trunk library")
+    if not sass["trunk"].get("front_kernel<bf16>", {}).get("HGMMA"):
+        fail("no HGMMA instruction in P2's bf16 front kernel (front_kernel<bf16>)")
     if not sass["loo"].get("loo_kernel<double>", {}).get("DMMA"):
         fail("no DMMA instruction in the f64 LOOCV kernel (loo_kernel<double>)")
 
     phase_conv_shapes()
+    stage12_layers()
     checks = phase_kernels()
 
     workdir = os.path.join(HERE, "chip_smoke_work")
@@ -1496,31 +1702,35 @@ def main():
             "trunk_s23": ("srcfinder_torch/ops/csrc/trunk.cu",
                           "ops/trunk_fuse.py:258 fused_trunk_segment('s23') -> "
                           "pl.pallas_call :284 (JAX package, git ca79403)"),
+            "trunk_s3": ("srcfinder_torch/ops/csrc/trunk.cu",
+                         "ops/trunk_fuse.py:258 fused_trunk_segment('s23') -> "
+                         "pl.pallas_call :284 (JAX package, git ca79403): its "
+                         "inception3a/3b and last pool"),
             "trunk_s45": ("srcfinder_torch/ops/csrc/trunk.cu",
                           "ops/trunk_fuse.py:258 fused_trunk_segment('s45') -> "
                           "pl.pallas_call :284 (JAX package, git ca79403)")}
     keys = ("max_abs_err", "max_rel_err", "tol", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    # the CMF kernels also report their shape, the library call's scope,
-    # the repeat check and (K2) the columns whose argmin differs
-    cmf_keys = keys + ("shape", "library_call", "bit_identical", "argmin_other_columns")
+    # the kernels also report the repeat check, the CMF kernels their
+    # shape, the library call's scope and (K2) the columns whose argmin
+    # differs, P2 its gather form's agreement and time
+    extra_keys = keys + ("shape", "library_call", "bit_identical", "argmin_other_columns",
+                         "gather_equal", "gather_ms")
     # each kernel's configurations: the first is the one its path runs
-    # (the flightline's f32 CMF; the CLI's bf16 batch of 4096 windows; the
-    # stage12 route's f32 batch of 512), top level in the line; the others
-    # (the CMF's cond-gated f64 recompute, the 12,000-line flightline's
-    # chunk, 512-window batches) nested
+    # (the flightline's f32 CMF; the CLI's bf16 batch of 4096 windows), top
+    # level in the line; the others (the CMF's cond-gated f64 recompute,
+    # the 12,000-line flightline's chunk, 512-window batches) nested
+    trunk_configs = ("bfloat16_b4096", "float32_b512", "bfloat16_b512")
     configs = {"masked_moments": ("float32", "float64", "float64_c8", "float32_L12000"),
                "loo_sweep": ("float32", "float64", "float64_c8", "float32_L12000"),
-               "fused_stage12": ("float32_b512", "bfloat16_b512"),
-               "trunk_s23": ("bfloat16_b4096", "float32_b512", "bfloat16_b512"),
-               "trunk_s45": ("bfloat16_b4096", "float32_b512", "bfloat16_b512")}
+               **dict.fromkeys(TRUNK_KERNELS, trunk_configs)}
     kernels = []
     for kname, (src, rep) in meta.items():
         run, n = launches[kname]
         top, *others = configs[kname]
         entry = dict(name=kname, route="cuda", source=src, replaces=rep,
                      launches=n, launches_in=run, config=top)
-        ks = [k for k in cmf_keys if k in checks[(kname, top)]]
+        ks = [k for k in extra_keys if k in checks[(kname, top)]]
         entry.update({k: checks[(kname, top)][k] for k in ks})
         for c in others:
             entry[c] = {k: checks[(kname, c)][k] for k in ks}

@@ -6,16 +6,18 @@ centred on every pixel. Two modes:
 
 - ``exact`` (:func:`cnn_window_saliency`): one GoogLeNet forward per window,
   window-edge conv padding identical to the reference. The padded scene is
-  on the device once; each batch gathers its windows from a band of rows
-  and runs one batched forward, all on one stream with no host sync until
-  the end. ``trunk=`` picks how the trunk runs:
+  on the device once; each batch takes its windows' origins in it and runs
+  one batched forward, all on one stream with no host sync until the end.
+  ``trunk=`` picks how the trunk runs:
 
-  - ``"segments"`` (default): conv1 (cuDNN) -> ``trunk_s23`` -> ``trunk_s45``
-    -> fc, the JAX package's last fused design;
-  - ``"stage12"``: ``fused_stage12`` -> the model's stage 3 resumed after
-    the pool (``start_stage=3, start_pooled=True``) -> ceil-pool ->
-    ``trunk_s45`` -> fc, its first fused design;
-  - ``"plain"``: the model's own forward.
+  - ``"stage12"`` (default): ``fused_stage12_gather`` (its kernel reads
+    each window's halo from the padded scene: the windows are never
+    written out) -> ``trunk_s3`` -> ``trunk_s45`` -> fc, on hand kernels
+    only, the one of the two kernel routes with less device time on the
+    H100 (PERF.md);
+  - ``"segments"``: the windows gathered, conv1 (cuDNN) -> ``trunk_s23``
+    -> ``trunk_s45`` -> fc, the JAX package's last fused design;
+  - ``"plain"``: the windows gathered, the model's own forward.
 
   The kernel routes launch the CUDA kernels of ``ops/trunk_fuse.py`` on a
   card and their plain versions on the CPU.
@@ -35,9 +37,9 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..models.fcn import fc_logits
-from ..models.googlenet import GoogLeNet, _ceil_maxpool, fold_inference
-from ..ops.trunk_fuse import (fused_stage12, pack_params, stage12_params, trunk_s23,
-                              trunk_s45, trunk_segment_params)
+from ..models.googlenet import GoogLeNet, fold_inference
+from ..ops.trunk_fuse import (fused_stage12_gather, pack_params, stage12_params, trunk_s3,
+                              trunk_s23, trunk_s45, trunk_segment_params)
 from .preprocess import norm_for_model, preprocess_ch4
 
 __all__ = ["reference_pad", "cnn_window_saliency", "cnn_fast_saliency",
@@ -54,67 +56,57 @@ def reference_pad(img, dim: int = 256):
 
 
 class _WindowForward:
-    """(B, D, D) window batch -> (B,) class-1 probability in f32, through
-    the trunk route ``trunk``; the kernel routes' weights are taken from
-    the folded model and packed once, on its device and dtype."""
+    """Windows of side ``dim`` at ``origins`` (B, 2) (row, col) of the
+    padded scene -> (B,) class-1 probability in f32, through the trunk
+    route ``trunk``; the kernel routes' weights are taken from the folded
+    model and packed once, on its device and dtype."""
 
     def __init__(self, model: GoogLeNet, trunk: str):
         if trunk not in TRUNKS:
             raise ValueError(f"unknown trunk {trunk!r}; use one of {TRUNKS}")
         self.model, self.trunk = model, trunk
+        sd = model.state_dict()
+        if trunk == "stage12":
+            self.p12 = pack_params("fused_stage12", stage12_params(sd))
+            self.p3 = pack_params("trunk_s3", trunk_segment_params(sd, "s3"))
+        elif trunk == "segments":
+            self.p23 = pack_params("trunk_s23", trunk_segment_params(sd, "s23"))
         if trunk != "plain":
-            sd = model.state_dict()
             self.p45 = pack_params("trunk_s45", trunk_segment_params(sd, "s45"))
-            self.p_head = (pack_params("trunk_s23", trunk_segment_params(sd, "s23"))
-                           if trunk == "segments"
-                           else pack_params("fused_stage12", stage12_params(sd)))
 
-    def __call__(self, wins):
+    def __call__(self, padded, origins, dim):
         m = self.model
-        if self.trunk == "plain":
-            logits = m(wins[:, None])
+        if self.trunk == "stage12":
+            x = trunk_s3(fused_stage12_gather(padded, origins, dim, self.p12), self.p3)
         else:
-            if self.trunk == "segments":
-                c1 = m(wins[:, None], stage=1).permute(0, 2, 3, 1).contiguous()
-                x = trunk_s23(c1, self.p_head)
-            else:
-                x = fused_stage12(wins[..., None], self.p_head)
-                x = m(x.permute(0, 3, 1, 2).contiguous(), stage=3,
-                      start_stage=3, start_pooled=True)
-                x = _ceil_maxpool(x, 3, 2).permute(0, 2, 3, 1).contiguous()
-            logits = m.fc(trunk_s45(x, self.p45))
+            wins = padded.unfold(0, dim, 1).unfold(1, dim, 1)[origins[:, 0], origins[:, 1]]
+            if self.trunk == "plain":
+                return torch.softmax(m(wins[:, None]), dim=-1)[:, 1].float()
+            x = trunk_s23(m(wins[:, None], stage=1).permute(0, 2, 3, 1).contiguous(), self.p23)
+        logits = m.fc(trunk_s45(x, self.p45))
         return torch.softmax(logits, dim=-1)[:, 1].float()
 
 
 @torch.inference_mode()
 def cnn_window_saliency(model: GoogLeNet, img, dim: int = 256, batch: int = 512,
-                        trunk: str = "segments", progress=None):
+                        trunk: str = "stage12", progress=None):
     """Exact dense sliding-window class-1 probability map.
 
     img: (H, W) preprocessed tensor. Returns (H, W) f32 on its device.
 
-    Windows are taken in row-major order, so a batch spans at most
-    ceil(batch / W) + 1 image rows: each batch gathers its windows from one
-    band of ``dim + ceil(batch / W)`` padded rows. The last batch is padded
-    with copies of the scene's last window, whose outputs are discarded.
+    Windows are taken in row-major order: pixel (r, c)'s window starts at
+    row r, column c of the padded scene. The last batch is padded with
+    copies of the scene's last window, whose outputs are discarded.
     """
     h, w = img.shape
     padded = reference_pad(img, dim)
     n = h * w
-    # rows a batch can span, clamped to the scene (a narrow scene's band is
-    # the whole padded scene)
-    band_h = min(dim + -(-batch // w), padded.shape[0])
     forward = _WindowForward(model, trunk)
     out = torch.empty(n, dtype=torch.float32, device=img.device)
     for i in range(0, n, batch):
         take = min(batch, n - i)
         idx = torch.arange(i, i + batch, device=img.device).clamp_(max=n - 1)
-        # pin the band start away from the bottom edge so every window of
-        # the batch lies inside the band
-        r0 = min(i // w, padded.shape[0] - band_h)
-        band = padded[r0:r0 + band_h].unfold(0, dim, 1).unfold(1, dim, 1)
-        wins = band[idx // w - r0, idx % w]                 # (batch, dim, dim)
-        out[i:i + take] = forward(wins)[:take]
+        out[i:i + take] = forward(padded, torch.stack([idx // w, idx % w], dim=1), dim)[:take]
         if progress is not None:
             progress(i + take, n)
     return out.reshape(h, w)
@@ -164,7 +156,7 @@ def cnn_fast_saliency(model: GoogLeNet, img, dim: int = 256):
 def cnn_saliency_image(img, model: GoogLeNet, model_name: str = "COVID_QC",
                        dim: int = 256, batch: int = 512, nodata=-9999.0,
                        method: str = "exact", dtype=torch.float32, progress=None,
-                       fused: bool = True, trunk: str = "segments", device="cuda"):
+                       fused: bool = True, trunk: str = "stage12", device="cuda"):
     """Raw CH4 band -> dense CNN saliency with nodata re-stamped
     (reference: cnn_pred_pipeline.py:170-189).
 

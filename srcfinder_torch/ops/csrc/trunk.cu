@@ -1,11 +1,13 @@
 // GoogLeNet trunk segments of the exact dense CNN, per window batch, NHWC:
 //
-//   fused_stage12  (N, D, D, 1) windows -> conv1 7x7/2 pad 3 -> ceil-pool 3x3/2
-//                  -> conv2 1x1 -> conv3 3x3 pad 1 -> ceil-pool 3x3/2
-//                  -> (N, D/8, D/8, 192)
+//   fused_stage12  windows of side D read from a plane (N, D, D, 1 windows, or
+//                  a padded scene and each window's origin) -> conv1 7x7/2
+//                  pad 3 -> ceil-pool 3x3/2 -> conv2 1x1 -> conv3 3x3 pad 1
+//                  -> ceil-pool 3x3/2 -> (N, D/8, D/8, 192)
 //   trunk_s23      (N, h, h, 64) conv1 output, h = D/2 -> ceil-pool -> conv2
-//                  -> conv3 -> ceil-pool -> inception3a -> inception3b
-//                  -> ceil-pool -> (N, h/8, h/8, 480)
+//                  -> conv3 -> ceil-pool -> trunk_s3
+//   trunk_s3       (N, g, g, 192), g = D/8 -> inception3a -> inception3b
+//                  -> ceil-pool -> (N, g/2, g/2, 480)
 //   trunk_s45      (N, g, g, 480) -> inception4a..4e -> max-pool 2x2/2
 //                  -> inception5a -> inception5b -> global average pool
 //                  -> (N, 1024)
@@ -16,18 +18,40 @@
 //
 // Every conv is BN-folded conv + bias + ReLU. fused_stage12 replaces the
 // JAX package's Pallas kernel ops/trunk_fuse.py::fused_stage12 (git
-// be3cd8d); trunk_s23 and trunk_s45 replace its two segments of
-// ops/trunk_fuse.py::fused_trunk_segment (git ca79403). Those kept one
-// window's whole segment in VMEM. Here a window's s23 input alone is 2.1 MB
-// in bf16, far above the 227 KB of shared memory a block can use, so each
-// layer is its own launch over the whole batch and intermediates go through
-// device memory (scratch the caller allocates).
+// be3cd8d, :173, pl.pallas_call at :195); trunk_s23, trunk_s3 and trunk_s45
+// replace its two segments of ops/trunk_fuse.py::fused_trunk_segment (git
+// ca79403). Those kept one window's whole segment in VMEM. Here a window's
+// s23 input alone is 2.1 MB in bf16, far above the 227 KB of shared memory
+// a block can use, so from conv2's output on each layer is its own launch
+// over the whole batch and intermediates go through device memory
+// (scratch the caller allocates).
 //
 // Bound on this card: the convolutions, about 3.6 GFLOP per 256x256 window,
 // against under 10 MB of bf16 feature maps per window: some 370 operations
 // per byte, above the H100's 295 for bf16, so the arithmetic bounds the
 // segments: operations over 989 TFLOP/s (bf16, tensor cores) or 67 TFLOP/s
-// (f32, FMA pipes; TF32 stays off, it is not full precision).
+// (f32, FMA pipes; TF32 stays off, it is not full precision). P2 alone is
+// 1.04 GFLOP per window against the bytes of one window in (64 K pixels)
+// and (D/8)^2 * 192 out: operations bound it too.
+//
+// P2's front (front_kernel): conv1 has one input channel, so its 16-byte
+// im2col vectors would cross taps and the tensor-core conv cannot take it;
+// on the FMA conv its 103 MFLOP per window outweighed P2's whole bf16
+// bound, and its (D/2)^2 * 64 output made a round trip through device
+// memory to pool1. front_kernel takes a tile of 8 x 8 pool1 outputs of one
+// window: it loads the tile's 39 x 39 input halo straight from the plane
+// (pixels outside the window read 0: the window's own zero padding, what
+// the reference's crops see), computes conv1 for the 17 x 17 pixels the
+// pools read (13% recomputed at the tile edges), pools in shared memory and
+// runs conv2 on the pooled tile; only conv2's (D/4)^2 * 64 output reaches
+// device memory. In bf16 both convs run on wgmma: conv1 as a GEMM of the
+// 289 pixels (five m64 tiles) by 64 channels over its 49 taps padded to 64
+// (zero weight rows, zero im2col columns), its im2col rows built in shared
+// memory from the staged tile while the previous tile's wgmma runs; conv2
+// reads the pooled tile, laid out as wgmma's A operand, straight from
+// shared memory. One warpgroup and 72 KB a block, three blocks an SM. In
+// f32 the same tiling runs on the FMA pipes (256 threads, 107 KB, two
+// blocks an SM).
 //
 // Design:
 // - conv_wgmma_kernel (bf16): an implicit GEMM on the tensor cores. Rows
@@ -53,8 +77,8 @@
 //   when Cin, Cout, the channel split and the input and output pixel
 //   strides are multiples of 8 and the input, weight and output pointers
 //   16-byte aligned; every conv of trunk_s23/trunk_s45 and P2's conv2/conv3
-//   meet it. P2's conv1 (7x7, one input channel) does not and runs on
-//   conv_kernel by design, as does every f32 conv.
+//   meet it; P2's conv1 runs inside front_kernel. Every f32 conv runs on
+//   conv_kernel.
 // - Epilogue of both: bias added and ReLU in f32, then one rounding to the
 //   storage type, where the Pallas kernels rounded. The output goes to a
 //   channel offset and pixel stride of the concatenated inception output
@@ -72,13 +96,16 @@
 // Not yet: TMA for the weights and the 1x1 convs' A tiles (plain 2-D boxes
 // of an NHWC map) with a producer warp and mbarriers in place of the
 // cp.async ring every thread feeds; persistent blocks that overlap one
-// tile's epilogue with the next tile's loads; halo tiles that would keep a
-// window's pool1 -> conv2 -> conv3 chain in shared memory.
+// tile's epilogue with the next tile's loads; conv3 and pool2 inside P2's
+// front kernel (conv3's 64 -> 192 channels over a 10 x 10 halo of the
+// pooled tile would need 4x the pooled tile's shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -505,6 +532,357 @@ __global__ void gap_kernel(const T* __restrict__ x, T* __restrict__ y, int P,
   y[e] = from_f<T>(s / P);
 }
 
+// ---- P2's front: window gather, conv1, pool1 and conv2 in one kernel --------
+
+constexpr int FT = 8;             // pool1 outputs per tile side
+constexpr int F1 = 2 * FT + 1;    // conv1 outputs per tile side: the pools' halo
+constexpr int F1N = F1 * F1;      // conv1 outputs per tile
+constexpr int FIN = 4 * FT + 7;   // input pixels per tile side: conv1's halo
+constexpr int FP = FT * FT;       // pool1 outputs per tile
+
+// Windows of side d in a plane of rows x cols pixels with row pitch pitch:
+// window b's pixel (y, x) is src[(origins[2b] + y) * pitch + origins[2b+1] + x].
+// Pixels outside the window read 0 (the window's zero padding), and so do
+// pixels outside the plane. y: conv2's output (n, h2, h2, 64).
+template <typename T>
+struct Front {
+  const T* src;
+  int64_t pitch, rows, cols;
+  const int64_t* origins;
+  const T* w1;  // conv1 (49, 64), taps ky * 7 + kx
+  const T* b1;
+  const T* w2;  // conv2 (64, 64)
+  const T* b2;
+  T* y;
+  int d, h1, h2, tiles;  // window side, conv1 and pool1 sides, tiles a side
+};
+
+// Byte offset of 16-byte chunk q of row m of a map of 64 channels a row.
+// 128-byte rows (bf16) are wgmma's 128-byte swizzle (sw128); 256-byte rows
+// (f32) xor the same bits. A quarter-warp that reads or writes one chunk
+// of 8 consecutive rows, or the chunks of one row, meets no bank conflict.
+template <typename T>
+__device__ __forceinline__ int map_off(int m, int q) {
+  return m * static_cast<int>(64 * sizeof(T)) + ((q ^ (m & 7)) << 4);
+}
+
+// the tile's FIN x FIN input halo into in[]; input tile row 0 is window row
+// 4 FT ty - 3 (conv1's first output row of the tile, 2 FT ty, less its pad)
+template <typename T>
+__device__ __forceinline__ void front_input(const Front<T>& a, int b, int ty, int tx, T* in,
+                                            int nthreads) {
+  const int64_t r0 = a.origins[2 * b], c0 = a.origins[2 * b + 1];
+  const int iy0 = 4 * FT * ty - 3, ix0 = 4 * FT * tx - 3;
+  for (int e = threadIdx.x; e < FIN * FIN; e += nthreads) {
+    const int iy = iy0 + e / FIN, ix = ix0 + e % FIN;
+    const int64_t r = r0 + iy, c = c0 + ix;
+    const bool v = iy >= 0 && iy < a.d && ix >= 0 && ix < a.d && r >= 0 && r < a.rows &&
+                   c >= 0 && c < a.cols;
+    in[e] = v ? a.src[r * a.pitch + c] : from_f<T>(0.f);
+  }
+}
+
+// ceil-mode 3x3/2 pool of the F1 x F1 conv1 map into the FT x FT pooled
+// tile; taps past conv1's last row or column are skipped (-inf padding),
+// pooled pixels past pool1's map are 0 (their conv2 rows are dropped)
+template <typename T>
+__device__ __forceinline__ void front_pool(const Front<T>& a, int ty, int tx,
+                                           const unsigned char* map, unsigned char* pooled,
+                                           int nthreads) {
+  constexpr int V = 16 / sizeof(T), CH = 64 / V;
+  for (int e = threadIdx.x; e < FP * CH; e += nthreads) {
+    const int p = e / CH, q = e % CH, py = p / FT, px = p % FT;
+    const int gy = FT * ty + py, gx = FT * tx + px;
+    const bool inside = gy < a.h2 && gx < a.h2;
+    float v[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = inside ? -INFINITY : 0.f;
+    if (inside)
+      for (int dy = 0; dy < 3 && 2 * gy + dy < a.h1; ++dy)
+        for (int dx = 0; dx < 3 && 2 * gx + dx < a.h1; ++dx) {
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              map + map_off<T>((2 * py + dy) * F1 + 2 * px + dx, q));
+          const T* t = reinterpret_cast<const T*>(&w);
+#pragma unroll
+          for (int i = 0; i < V; ++i) v[i] = fmaxf(v[i], to_f(t[i]));
+        }
+    uint4 o;
+    T* t = reinterpret_cast<T*>(&o);
+#pragma unroll
+    for (int i = 0; i < V; ++i) t[i] = from_f<T>(v[i]);
+    *reinterpret_cast<uint4*>(pooled + map_off<T>(p, q)) = o;
+  }
+}
+
+// bf16: one warpgroup. Shared memory from a 1024-byte-aligned base: two A
+// slots of conv1's im2col (64 rows of 64 taps; the pooled tile, conv2's
+// A, later takes slot 0), conv1's and conv2's weights as wgmma's B (64
+// reduction rows of 64 channels), the conv1 map (later conv2's output on
+// its way out), the input tile.
+constexpr int FB_THREADS = 128;
+constexpr int FB_MT = (F1N + 63) / 64;   // conv1's m64 tiles
+constexpr int FB_A = 0, FB_W1 = 2 * 8192, FB_W2 = FB_W1 + 8192, FB_MAP = FB_W2 + 8192;
+constexpr int FB_IN = FB_MAP + F1N * 128;
+constexpr int FB_SMEM = FB_IN + FIN * FIN * 2 + 1024;
+
+// conv1 tap k's offset in the input tile, or -1 for the padded taps 49..63
+__host__ __device__ constexpr int tap_off(int k) { return k < 49 ? (k / 7) * FIN + k % 7 : -1; }
+
+__device__ __forceinline__ void front_bf16(const Front<bf16>& a, unsigned char* raw) {
+  const uint32_t s0 = (smem_u32(raw) + 1023) & ~1023u;
+  unsigned char* sm = raw + (s0 - smem_u32(raw));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = a.tiles * a.tiles;
+  const int b = blockIdx.x / per, ty = blockIdx.x % per / a.tiles, tx = blockIdx.x % a.tiles;
+
+  // weights as wgmma's B (N-major, as conv_wgmma_kernel stages them);
+  // conv1's reduction rows 49..63 zero
+  for (int e = tid; e < 2 * 64 * 8; e += FB_THREADS) {
+    const int second = e >= 512, k = e / 8 % 64, q = e % 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (second || k < 49)
+      v = *reinterpret_cast<const uint4*>((second ? a.w2 : a.w1) + k * 64 + q * 8);
+    *reinterpret_cast<uint4*>(sm + (second ? FB_W2 : FB_W1) + sw128(k, q)) = v;
+  }
+  front_input(a, b, ty, tx, reinterpret_cast<bf16*>(sm + FB_IN), FB_THREADS);
+  // biases of this thread's accumulator columns 8 j + 2 (lane & 3) + {0, 1}
+  float bias1[16], bias2[16];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bias1[2 * j + h] = __bfloat162float(a.b1[8 * j + 2 * (lane & 3) + h]);
+      bias2[2 * j + h] = __bfloat162float(a.b2[8 * j + 2 * (lane & 3) + h]);
+    }
+  __syncthreads();
+
+  // im2col of conv1's m64 tile t into A slot t & 1: this thread writes row
+  // tid & 63 (pixel m = r F1 + c, reading input (2r + ky, 2c + kx)),
+  // chunks q0 + 2i of 8 taps; a warp's lanes read neighbouring pixels,
+  // 4 bytes apart, so the stride-2 reads meet no bank conflict. Rows past
+  // the tile's F1N pixels keep an earlier tile's finite values; their
+  // outputs are dropped.
+  const unsigned short* in16 = reinterpret_cast<const unsigned short*>(sm + FB_IN);
+  const int rr = tid & 63, q0 = tid >> 6;
+  auto build = [&](int t) {
+    const int m = 64 * t + rr;
+    if (m >= F1N) return;
+    const unsigned short* p = in16 + 2 * (m / F1) * FIN + 2 * (m % F1);
+    unsigned char* A = sm + FB_A + (t & 1) * 8192;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 16 * i + 2 * e;
+        const int lo = q0 ? tap_off(k + 8) : tap_off(k);
+        const int hi = q0 ? tap_off(k + 9) : tap_off(k + 1);
+        w[e] = (lo < 0 ? 0u : static_cast<uint32_t>(p[lo])) |
+               (hi < 0 ? 0u : static_cast<uint32_t>(p[hi]) << 16);
+      }
+      *reinterpret_cast<uint4*>(A + sw128(rr, q0 + 2 * i)) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  };
+
+  const uint64_t db1 = smem_desc(s0 + FB_W1, 8192, 1024);
+  const uint64_t db2 = smem_desc(s0 + FB_W2, 8192, 1024);
+  float acc[32];
+  build(0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  for (int t = 0; t < FB_MT; ++t) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const uint64_t da = smem_desc(s0 + FB_A + (t & 1) * 8192, 16, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_n64(acc, da + 2 * kk, db1 + 128 * kk);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if (t + 1 < FB_MT) build(t + 1);  // the other slot, while this tile's wgmma runs
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    // bias, ReLU and one rounding into the conv1 map
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = 64 * t + warp * 16 + (lane >> 2) + 8 * hf;
+        if (m < F1N)
+          *reinterpret_cast<__nv_bfloat162*>(sm + FB_MAP + map_off<bf16>(m, j) + (lane & 3) * 4) =
+              __floats2bfloat162_rn(fmaxf(acc[4 * j + 2 * hf] + bias1[2 * j], 0.f),
+                                    fmaxf(acc[4 * j + 2 * hf + 1] + bias1[2 * j + 1], 0.f));
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  }
+
+  // pool1 into A slot 0 (its last wgmma has completed), then conv2
+  front_pool(a, ty, tx, sm + FB_MAP, sm + FB_A, FB_THREADS);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  const uint64_t da = smem_desc(s0 + FB_A, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_n64(acc, da + 2 * kk, db2 + 128 * kk);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+  // conv2's tile through the (dead) conv1 map, then out in 16-byte chunks:
+  // a pixel's 128 bytes on 8 neighbouring threads
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int p = warp * 16 + (lane >> 2) + 8 * hf;
+      *reinterpret_cast<__nv_bfloat162*>(sm + FB_MAP + map_off<bf16>(p, j) + (lane & 3) * 4) =
+          __floats2bfloat162_rn(fmaxf(acc[4 * j + 2 * hf] + bias2[2 * j], 0.f),
+                                fmaxf(acc[4 * j + 2 * hf + 1] + bias2[2 * j + 1], 0.f));
+    }
+  __syncthreads();
+  for (int e = tid; e < FP * 8; e += FB_THREADS) {
+    const int p = e / 8, q = e % 8, gy = FT * ty + p / FT, gx = FT * tx + p % FT;
+    if (gy < a.h2 && gx < a.h2)
+      *reinterpret_cast<uint4*>(a.y + ((static_cast<int64_t>(b) * a.h2 + gy) * a.h2 + gx) * 64 +
+                                q * 8) =
+          *reinterpret_cast<const uint4*>(sm + FB_MAP + map_off<bf16>(p, q));
+  }
+}
+
+// f32: 256 threads on the FMA pipes. Shared memory: conv1's weights and the
+// input tile (the pooled tile later takes both), conv2's weights, the
+// conv1 map.
+constexpr int FF_THREADS = 256;
+constexpr int FF_W1 = 0, FF_IN = 49 * 64 * 4, FF_POOL = 0;
+constexpr int FF_W2 = (FF_IN + FIN * FIN * 4 + 15) / 16 * 16;
+constexpr int FF_MAP = FF_W2 + 64 * 64 * 4;
+constexpr int FF_SMEM = FF_MAP + F1N * 256;
+static_assert(FP * 256 <= FF_W2, "the pooled tile must fit over conv1's weights and input");
+
+__device__ __forceinline__ void front_f32(const Front<float>& a, unsigned char* sm) {
+  const int tid = threadIdx.x;
+  const int per = a.tiles * a.tiles;
+  const int b = blockIdx.x / per, ty = blockIdx.x % per / a.tiles, tx = blockIdx.x % a.tiles;
+  float* w1 = reinterpret_cast<float*>(sm + FF_W1);
+  float* w2 = reinterpret_cast<float*>(sm + FF_W2);
+  float* in = reinterpret_cast<float*>(sm + FF_IN);
+  for (int e = tid; e < 49 * 64; e += FF_THREADS) w1[e] = a.w1[e];
+  for (int e = tid; e < 64 * 64; e += FF_THREADS) w2[e] = a.w2[e];
+  front_input(a, b, ty, tx, in, FF_THREADS);
+  __syncthreads();
+
+  // conv1 in two rounds of 160 pixels: this thread's channels 4 cg + {0..3}
+  // and 32 + 4 cg + {0..3} (a quarter-warp reads 128 contiguous weight
+  // bytes), pixels 160 round + pg + 32 i
+  const int cg = tid & 7, pg = tid >> 3;
+  float bias[8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bias[j] = a.b1[4 * cg + j];
+    bias[4 + j] = a.b1[32 + 4 * cg + j];
+  }
+  for (int round = 0; round < 2; ++round) {
+    int base[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const int m = 160 * round + pg + 32 * i;
+      base[i] = m < F1N ? 2 * (m / F1) * FIN + 2 * (m % F1) : 0;
+    }
+    float acc[5][8];
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 49; ++k) {
+      const float4 u = *reinterpret_cast<const float4*>(w1 + k * 64 + 4 * cg);
+      const float4 v = *reinterpret_cast<const float4*>(w1 + k * 64 + 32 + 4 * cg);
+      const float wv[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        const float x = in[base[i] + (k / 7) * FIN + k % 7];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, wv[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const int m = 160 * round + pg + 32 * i;
+      if (m >= F1N) continue;
+      float r[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) r[j] = fmaxf(acc[i][j] + bias[j], 0.f);
+      *reinterpret_cast<float4*>(sm + FF_MAP + map_off<float>(m, cg)) =
+          make_float4(r[0], r[1], r[2], r[3]);
+      *reinterpret_cast<float4*>(sm + FF_MAP + map_off<float>(m, 8 + cg)) =
+          make_float4(r[4], r[5], r[6], r[7]);
+    }
+  }
+  __syncthreads();
+  front_pool(a, ty, tx, sm + FF_MAP, sm + FF_POOL, FF_THREADS);
+  __syncthreads();
+
+  // conv2: this thread's channels 4 cg2 + {0..3}, pixels pg2 + 16 i; out
+  // straight to device memory, a pixel's 256 bytes on 16 neighbouring threads
+  const int cg2 = tid & 15, pg2 = tid >> 4;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int q = 0; q < 16; ++q) {
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float4*>(sm + FF_POOL + map_off<float>(pg2 + 16 * i, q));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 w = *reinterpret_cast<const float4*>(w2 + (4 * q + kk) * 64 + 4 * cg2);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float xv = kk == 0 ? x[i].x : kk == 1 ? x[i].y : kk == 2 ? x[i].z : x[i].w;
+        acc[i][0] = fmaf(xv, w.x, acc[i][0]);
+        acc[i][1] = fmaf(xv, w.y, acc[i][1]);
+        acc[i][2] = fmaf(xv, w.z, acc[i][2]);
+        acc[i][3] = fmaf(xv, w.w, acc[i][3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = pg2 + 16 * i, gy = FT * ty + p / FT, gx = FT * tx + p % FT;
+    if (gy >= a.h2 || gx >= a.h2) continue;
+    float r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r[j] = fmaxf(acc[i][j] + a.b2[4 * cg2 + j], 0.f);
+    *reinterpret_cast<float4*>(a.y + ((static_cast<int64_t>(b) * a.h2 + gy) * a.h2 + gx) * 64 +
+                               4 * cg2) = make_float4(r[0], r[1], r[2], r[3]);
+  }
+}
+
+template <typename T> struct FrontCfg;
+template <> struct FrontCfg<bf16> {
+  static constexpr int THREADS = FB_THREADS, SMEM = FB_SMEM, BLOCKS = 3;
+};
+template <> struct FrontCfg<float> {
+  static constexpr int THREADS = FF_THREADS, SMEM = FF_SMEM, BLOCKS = 2;
+};
+
+// one block per (window, 8 x 8 tile of pool1 outputs)
+template <typename T>
+__global__ void __launch_bounds__(FrontCfg<T>::THREADS, FrontCfg<T>::BLOCKS)
+    front_kernel(const Front<T> a) {
+  extern __shared__ __align__(16) unsigned char front_smem[];
+  if constexpr (std::is_same<T, bf16>::value)
+    front_bf16(a, front_smem);
+  else
+    front_f32(a, front_smem);
+}
+
 // ---- host side --------------------------------------------------------------
 
 #define TRY(expr)                      \
@@ -640,20 +1018,52 @@ int inception(cudaStream_t st, int n, const Plan& p, const T* x, int h, int w,
   return 0;
 }
 
-// weights: conv1 (7, 7, 1, 64), b1, conv2 (64, 64), b2, conv3 (3, 3, 64, 192), b3
-// scratch: c1 (n, d/2, d/2, 64), p1 (n, d/4, d/4, 64), c2 (same), c3 (n, d/4, d/4, 192)
 template <typename T>
-int fused_stage12(const T* x, T* out, const T* const* wt, T* const* s, int n, int d,
-                  cudaStream_t st) {
-  const int h1 = (d - 1) / 2 + 1, h2 = ceil_out(h1, 3, 2);
-  TRY(conv(st, n, x, 1, d, d, 1, 7, 2, 3, wt[0], wt[1], 64, s[0], 64));
-  TRY(maxpool(st, n, s[0], h1, h1, 64, 3, 2, 0, s[1]));
-  TRY(conv(st, n, s[1], 64, h2, h2, 64, 1, 1, 0, wt[2], wt[3], 64, s[2], 64));
-  TRY(conv(st, n, s[2], 64, h2, h2, 64, 3, 1, 1, wt[4], wt[5], 192, s[3], 192));
-  return maxpool(st, n, s[3], h2, h2, 192, 3, 2, 0, out);
+int front(const Front<T>& a, int n, cudaStream_t st) {
+  using C = FrontCfg<T>;
+  if (!aligned16(a.w1) || !aligned16(a.w2) || !aligned16(a.y))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TRY(static_cast<int>(cudaFuncSetAttribute(
+      front_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM)));
+  TRY(static_cast<int>(cudaFuncSetAttribute(
+      front_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared)));
+  const int64_t blocks = static_cast<int64_t>(n) * a.tiles * a.tiles;
+  front_kernel<T><<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// weights: conv2, b2, conv3, b3, then 8 per inception block (see inception)
+// windows: see Front (origins (n, 2) of int64)
+// weights: conv1 (7, 7, 1, 64), b1, conv2 (64, 64), b2, conv3 (3, 3, 64, 192), b3
+// scratch: c2 (n, d/4, d/4, 64), c3 (same, 192)
+template <typename T>
+int fused_stage12(const T* src, int64_t pitch, int64_t rows, int64_t cols,
+                  const int64_t* origins, T* out, const T* const* wt, T* const* s, int n,
+                  int d, cudaStream_t st) {
+  Front<T> a;
+  a.src = src; a.pitch = pitch; a.rows = rows; a.cols = cols; a.origins = origins;
+  a.w1 = wt[0]; a.b1 = wt[1]; a.w2 = wt[2]; a.b2 = wt[3]; a.y = s[0];
+  a.d = d;
+  a.h1 = (d - 1) / 2 + 1;
+  a.h2 = ceil_out(a.h1, 3, 2);
+  a.tiles = (a.h2 + FT - 1) / FT;
+  TRY(front(a, n, st));
+  TRY(conv(st, n, s[0], 64, a.h2, a.h2, 64, 3, 1, 1, wt[4], wt[5], 192, s[1], 192));
+  return maxpool(st, n, s[1], a.h2, a.h2, 192, 3, 2, 0, out);
+}
+
+// weights: 8 per inception block, 3a and 3b (see inception)
+// scratch: red (n, g, g, 160), pooled (n, g, g, 256), i3a (n, g, g, 256),
+// i3b (n, g, g, 480)
+template <typename T>
+int trunk_s3(const T* x, T* out, const T* const* wt, T* const* s, int n, int g,
+             cudaStream_t st) {
+  TRY(inception(st, n, k3a, x, g, g, wt, s[0], s[1], s[2]));
+  TRY(inception(st, n, k3b, s[2], g, g, wt + 8, s[0], s[1], s[3]));
+  return maxpool(st, n, s[3], g, g, k3b.out(), 3, 2, 0, out);
+}
+
+// weights: conv2, b2, conv3, b3, then trunk_s3's
 // scratch: p1 (n, h/2, h/2, 64), c2 (same), c3 (n, h/2, h/2, 192),
 // p2 (n, h/4, h/4, 192), red (n, h/4, h/4, 160), i3a (n, h/4, h/4, 256),
 // i3b (n, h/4, h/4, 480)
@@ -668,9 +1078,8 @@ int trunk_s23(const T* x, T* out, const T* const* wt, T* const* s, int n, int h,
   // c2 = s[1] is dead from here; its (h/2)^2 * 64 elements are exactly
   // (h/4)^2 * 256, so it holds branch 4's pooled input of 3a (192
   // channels) and of 3b (256) with no scratch of its own
-  TRY(inception(st, n, k3a, s[3], h4, h4, wt + 4, s[4], s[1], s[5]));
-  TRY(inception(st, n, k3b, s[5], h4, h4, wt + 12, s[4], s[1], s[6]));
-  return maxpool(st, n, s[6], h4, h4, k3b.out(), 3, 2, 0, out);
+  T* const s3[4] = {s[4], s[1], s[5], s[6]};
+  return trunk_s3(s[3], out, wt + 4, s3, n, h4, st);
 }
 
 // weights: 8 per inception block, 4a..4e, 5a, 5b
@@ -706,12 +1115,27 @@ int trunk_s45(const T* x, T* out, const T* const* wt, T* const* s, int n, int g,
                  n, h, static_cast<cudaStream_t>(stream));                           \
   }
 
-ENTRY(srcf_fused_stage12_f32, fused_stage12, float)
-ENTRY(srcf_fused_stage12_bf16, fused_stage12, bf16)
 ENTRY(srcf_trunk_s23_f32, trunk_s23, float)
 ENTRY(srcf_trunk_s23_bf16, trunk_s23, bf16)
+ENTRY(srcf_trunk_s3_f32, trunk_s3, float)
+ENTRY(srcf_trunk_s3_bf16, trunk_s3, bf16)
 ENTRY(srcf_trunk_s45_f32, trunk_s45, float)
 ENTRY(srcf_trunk_s45_bf16, trunk_s45, bf16)
+
+// P2 over n windows of side d in a plane (see Front)
+#define STAGE12_ENTRY(NAME, T)                                                          \
+  extern "C" int NAME(const void* src, int64_t pitch, int64_t rows, int64_t cols,      \
+                      const void* origins, void* out, const void* const* w,            \
+                      void* const* s, int n, int d, void* stream) {                     \
+    return fused_stage12<T>(static_cast<const T*>(src), pitch, rows, cols,             \
+                            static_cast<const int64_t*>(origins), static_cast<T*>(out), \
+                            reinterpret_cast<const T* const*>(w),                       \
+                            reinterpret_cast<T* const*>(s), n, d,                       \
+                            static_cast<cudaStream_t>(stream));                         \
+  }
+
+STAGE12_ENTRY(srcf_fused_stage12_f32, float)
+STAGE12_ENTRY(srcf_fused_stage12_bf16, bf16)
 
 // one conv through the segments' dispatch; see Conv for the arguments
 #define CONV_ARGS                                                                    \

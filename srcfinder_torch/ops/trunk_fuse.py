@@ -1,23 +1,27 @@
 """GoogLeNet trunk segments of the exact dense CNN: CUDA kernels + plain versions.
 
-Three functions over a batch of windows, in the JAX package's NHWC layout,
+Functions over a batch of windows, in the JAX package's NHWC layout,
 with BN-folded weights (``models.googlenet.fold_state_dict``):
 
 - :func:`fused_stage12`: (B, D, D, 1) windows -> conv1 -> ceil-pool ->
   conv2 -> conv3 -> ceil-pool -> (B, D/8, D/8, 192); D % 8 == 0.
+  :func:`fused_stage12_gather` computes the same from a padded scene and
+  each window's (row, col) origin, so the windows are never written out.
 - :func:`trunk_s23`: (B, h, h, 64) conv1 outputs -> ceil-pool -> conv2 ->
-  conv3 -> ceil-pool -> inception3a/3b -> ceil-pool -> (B, h/8, h/8, 480);
-  h % 16 == 0.
+  conv3 -> ceil-pool -> :func:`trunk_s3` -> (B, h/8, h/8, 480); h % 16 == 0.
+- :func:`trunk_s3`: (B, g, g, 192), stage 2 after its pool ->
+  inception3a/3b -> ceil-pool -> (B, g/2, g/2, 480); g even.
 - :func:`trunk_s45`: (B, g, g, 480) -> inception4a..4e -> max-pool 2x2/2 ->
   inception5a/5b -> global average pool -> (B, 1024); g even.
 
 For tensors on the CPU each runs its plain PyTorch version
 (``*_ref``, built from ``F.conv2d``/``F.max_pool2d``); for CUDA tensors it
 launches ``csrc/trunk.cu`` (built for ``sm_90a`` at first use) and raises
-if it cannot. In bf16 the convolutions run on the tensor cores wherever
-:func:`tensor_core_ok` holds, which is every conv of ``trunk_s23`` and
-``trunk_s45`` (:func:`conv_plan` lists them); :func:`conv` runs one of
-them alone. The kernels replace the JAX package's Pallas kernels
+if it cannot. In bf16 the convolutions run on the tensor cores: every conv
+of the segments and ``fused_stage12``'s conv3 through the dispatch of
+:func:`tensor_core_ok` (:func:`conv_plan` lists them; :func:`conv` runs
+one of them alone), its conv1 and conv2 inside its front kernel. The
+kernels replace the JAX package's Pallas kernels
 ``ops/trunk_fuse.py::fused_stage12`` (git be3cd8d) and
 ``ops/trunk_fuse.py::fused_trunk_segment`` (git ca79403). Both versions
 round where those did: f32 accumulation, bias and ReLU in f32, one rounding
@@ -43,8 +47,9 @@ import torch.nn.functional as F
 from ..models.googlenet import _ceil_maxpool
 from .build import CudaKernel
 
-__all__ = ["fused_stage12", "trunk_s23", "trunk_s45", "conv", "conv_tile", "fused_stage12_ref",
-           "trunk_s23_ref", "trunk_s45_ref", "stage12_params",
+__all__ = ["fused_stage12", "fused_stage12_gather", "trunk_s23", "trunk_s3", "trunk_s45", "conv",
+           "conv_tile", "fused_stage12_ref", "trunk_s23_ref", "trunk_s3_ref", "trunk_s45_ref",
+           "stage12_params",
            "trunk_segment_params", "pack_params", "PackedParams", "launches",
            "KERNEL", "SCRATCH_BUDGET_BYTES", "scratch_plan", "sub_batch",
            "conv_plan", "ConvLaunch", "tensor_core_ok"]
@@ -62,32 +67,34 @@ _INCEPTION = {
     "inception5a": (256, 160, 320, 32, 128, 128),
     "inception5b": (384, 192, 384, 48, 128, 128),
 }
-_BLOCKS = {"s23": ("inception3a", "inception3b"),
+_BLOCKS = {"s23": ("inception3a", "inception3b"), "s3": ("inception3a", "inception3b"),
            "s45": ("inception4a", "inception4b", "inception4c", "inception4d",
                    "inception4e", "inception5a", "inception5b")}
 
 #: Device scratch one call may hold; a larger batch runs as sub-batches
-#: (:func:`sub_batch`). At D = 256 a window needs 9.4 MB (stage 1+2),
-#: 9.7 MB (s23) or 2.8 MB (s45) in f32 and half that in bf16, so a
-#: 512-window f32 batch runs whole and the CLI's 4096-window bf16 batch in
-#: three parts (s23) and one (s45).
+#: (:func:`sub_batch`). At D = 256 a window needs 4 MiB (stage 1+2),
+#: 9.7 MB (s23), 4.7 MB (s3) or 2.8 MB (s45) in f32 and half that in bf16,
+#: so a 512-window f32 batch runs whole and the CLI's 4096-window bf16 batch
+#: in one part (stage 1+2, s45), two (s3) or three (s23).
 SCRATCH_BUDGET_BYTES = 8 << 30
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIG = [_P, _P, _P, _P, _I, _I, _P]
+# src, pitch, rows, cols, origins, out, w, s, n, d, stream
+_STAGE12_SIG = [_P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _P]
 # x, ldx, n, H, W, Cin, K, stride, pad, w, b, Cout, y0, ldy0, split, y1, ldy1, stream
 _CONV_SIG = [_P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _L, _I, _P, _L, _P]
-_NAMES = ("fused_stage12", "trunk_s23", "trunk_s45")
+_NAMES = ("fused_stage12", "trunk_s23", "trunk_s3", "trunk_s45")
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-KERNEL = CudaKernel("trunk.cu", {**{f"srcf_{n}_{s}": _SIG for n in _NAMES
-                                    for s in _SUFFIX.values()},
+KERNEL = CudaKernel("trunk.cu", {**{f"srcf_{n}_{s}": _STAGE12_SIG if n == "fused_stage12" else _SIG
+                                    for n in _NAMES for s in _SUFFIX.values()},
                                  **{f"srcf_conv_{s}": _CONV_SIG for s in _SUFFIX.values()},
                                  "srcf_conv_bf16_tile": _CONV_SIG[:-1]})
 
 
 def launches(name: str) -> int:
-    """Launches of one of the three kernels, or of ``"conv"`` (all
-    dtypes), since the last ``KERNEL.reset()``."""
+    """Launches of one of the entry points of :data:`_NAMES`, or of
+    ``"conv"`` (all dtypes), since the last ``KERNEL.reset()``."""
     return sum(KERNEL.counts[f"srcf_{name}_{s}"] for s in _SUFFIX.values())
 
 
@@ -136,10 +143,11 @@ def _inception_params(sd, name):
 
 
 def trunk_segment_params(sd, segment: str):
-    """Flat weight list for :func:`trunk_s23` (``"s23"``) or
-    :func:`trunk_s45` (``"s45"``) from the port's folded (optionally
-    fused) ``state_dict``: s23 starts with conv2 (64, 64), its bias, conv3
-    (3, 3, 64, 192) and its bias; then 12 per inception block."""
+    """Flat weight list for :func:`trunk_s23` (``"s23"``),
+    :func:`trunk_s3` (``"s3"``) or :func:`trunk_s45` (``"s45"``) from the
+    port's folded (optionally fused) ``state_dict``: s23 starts with conv2
+    (64, 64), its bias, conv3 (3, 3, 64, 192) and its bias; then 12 per
+    inception block (s3 is s23 without conv2 and conv3)."""
     if segment not in _BLOCKS:
         raise ValueError(f"unknown segment {segment!r}")
     out = []
@@ -168,6 +176,7 @@ def _inception_shapes(name):
 
 
 _SHAPES = {"fused_stage12": [(49, 64), (1, 64), (64, 64), (1, 64), (3, 3, 64, 192), (1, 192)],
+           "trunk_s3": _inception_shapes("inception3a") + _inception_shapes("inception3b"),
            "trunk_s23": [(64, 64), (1, 64), (3, 3, 64, 192), (1, 192)]
            + _inception_shapes("inception3a") + _inception_shapes("inception3b"),
            "trunk_s45": sum((_inception_shapes(n) for n in _BLOCKS["s45"]), [])}
@@ -252,14 +261,28 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+def _front_ref(wins, ws):
+    """What fused_stage12's front kernel computes, NCHW: conv1, ceil-pool,
+    conv2 of (B, D, D[, 1]) windows."""
+    b, d = wins.shape[0], wins.shape[1]
+    x = _conv_ref(wins.reshape(b, 1, d, d), ws[0].reshape(7, 7, 1, 64), ws[1], 2, 3)
+    return _conv_ref(_ceil_maxpool(x, 3, 2), ws[2], ws[3])
+
+
 def fused_stage12_ref(wins, params):
     """Plain version of :func:`fused_stage12`."""
-    k1, b1, k2, b2, k3, b3 = _weights("fused_stage12", params)
-    b, d = wins.shape[0], wins.shape[1]
-    x = _conv_ref(wins.reshape(b, 1, d, d), k1.reshape(7, 7, 1, 64), b1, 2, 3)
-    x = _conv_ref(_ceil_maxpool(x, 3, 2), k2, b2)
-    x = _conv_ref(x, k3, b3, pad=1)
-    return _nhwc(_ceil_maxpool(x, 3, 2))
+    ws = _weights("fused_stage12", params)
+    return _nhwc(_ceil_maxpool(_conv_ref(_front_ref(wins, ws), ws[4], ws[5], pad=1), 3, 2))
+
+
+def _s3_ref(x, ws):
+    """inception3a, 3b and the ceil-pool of NCHW ``x``; NHWC out."""
+    return _nhwc(_ceil_maxpool(_inception_ref(_inception_ref(x, ws[:8]), ws[8:16]), 3, 2))
+
+
+def trunk_s3_ref(x, params):
+    """Plain version of :func:`trunk_s3`."""
+    return _s3_ref(_nchw(x), _weights("trunk_s3", params))
 
 
 def trunk_s23_ref(x, params):
@@ -267,9 +290,7 @@ def trunk_s23_ref(x, params):
     ws = _weights("trunk_s23", params)
     k2, b2, k3, b3 = ws[:4]
     x = _conv_ref(_ceil_maxpool(_nchw(x), 3, 2), k2, b2)
-    x = _ceil_maxpool(_conv_ref(x, k3, b3, pad=1), 3, 2)
-    x = _inception_ref(_inception_ref(x, ws[4:12]), ws[12:20])
-    return _nhwc(_ceil_maxpool(x, 3, 2))
+    return _s3_ref(_ceil_maxpool(_conv_ref(x, k3, b3, pad=1), 3, 2), ws[4:])
 
 
 def trunk_s45_ref(x, params):
@@ -288,12 +309,16 @@ def trunk_s45_ref(x, params):
 def scratch_plan(name, side):
     """NHWC shapes of one window's device scratch for entry point ``name``
     at input side ``side`` (D, h or g), in the order ``csrc/trunk.cu``
-    takes them. ``trunk_s23``'s second map (conv2's output, dead after
-    conv3) later holds branch 4's pooled input of 3a and 3b; the last map
-    of ``trunk_s45`` holds that of each of its blocks."""
+    takes them. ``fused_stage12`` keeps conv1's and pool1's maps in shared
+    memory: its scratch is conv2's and conv3's outputs. ``trunk_s23``'s
+    second map (conv2's output, dead after conv3) later holds branch 4's
+    pooled input of 3a and 3b; ``trunk_s3``'s second map holds it; the last
+    map of ``trunk_s45`` holds that of each of its blocks."""
     if name == "fused_stage12":
-        d2, d4 = side // 2, side // 4
-        return [(d2, d2, 64), (d4, d4, 64), (d4, d4, 64), (d4, d4, 192)]
+        d4 = side // 4
+        return [(d4, d4, 64), (d4, d4, 192)]
+    if name == "trunk_s3":
+        return [(side, side, 160), (side, side, 256), (side, side, 256), (side, side, 480)]
     if name == "trunk_s23":
         h2, h4 = side // 2, side // 4
         return [(h2, h2, 64), (h2, h2, 64), (h2, h2, 192), (h4, h4, 192),
@@ -352,16 +377,17 @@ def _inception_plan(name, side):
 
 
 def conv_plan(name, side):
-    """The convs entry point ``name`` launches at input side ``side`` (D,
-    h or g), in the order and with the channel offsets and pixel strides
-    of ``csrc/trunk.cu``."""
+    """The convs entry point ``name`` launches through the conv dispatch
+    at input side ``side`` (D, h or g), in the order and with the channel
+    offsets and pixel strides of ``csrc/trunk.cu``. ``fused_stage12``'s
+    conv1 and conv2 run inside its front kernel, so only conv3 is here."""
     if name == "fused_stage12":
-        return [_plain_conv("conv1", side, 1, 64, 7, 2), _plain_conv("conv2", side // 4, 64, 64, 1),
-                _plain_conv("conv3", side // 4, 64, 192, 3)]
+        return [_plain_conv("conv3", side // 4, 64, 192, 3)]
+    if name == "trunk_s3":
+        return sum((_inception_plan(b, side) for b in _BLOCKS["s3"]), [])
     if name == "trunk_s23":
         return ([_plain_conv("conv2", side // 2, 64, 64, 1),
-                 _plain_conv("conv3", side // 2, 64, 192, 3)]
-                + sum((_inception_plan(b, side // 4) for b in _BLOCKS["s23"]), []))
+                 _plain_conv("conv3", side // 2, 64, 192, 3)] + conv_plan("trunk_s3", side // 4))
     if name == "trunk_s45":
         return sum((_inception_plan(b, side if i < 5 else side // 2)
                     for i, b in enumerate(_BLOCKS["s45"])), [])
@@ -380,27 +406,34 @@ def tensor_core_ok(c: ConvLaunch, dtype=torch.bfloat16) -> bool:
 
 # ---- CUDA wrappers ---------------------------------------------------------
 
-def _launch(name, x, out, weights, side):
-    """Run entry point ``name`` over ``x`` in sub-batches of
-    :func:`sub_batch` windows, each with the scratch of
-    :func:`scratch_plan`."""
-    n = x.shape[0]
-    sub = sub_batch(name, n, side, x.dtype)
+def _launch(name, out, weights, side, inputs):
+    """Run entry point ``name`` over ``out.shape[0]`` windows in
+    sub-batches of :func:`sub_batch` windows, each with the scratch of
+    :func:`scratch_plan`; ``inputs(i, k)`` gives the C arguments that
+    locate windows ``i .. i + k - 1``."""
+    n = out.shape[0]
+    sub = sub_batch(name, n, side, out.dtype)
     # scratch (and weights packed for this call alone) return to PyTorch's
     # caching allocator when this function ends; the allocator hands them
     # out again only to work queued later on the same stream, so the
     # kernels still read them safely
-    scratch = [x.new_empty((sub,) + s) for s in scratch_plan(name, side)]
+    scratch = [out.new_empty((sub,) + s) for s in scratch_plan(name, side)]
     wptr = (_P * len(weights))(*[t.data_ptr() for t in weights])
     sptr = (_P * len(scratch))(*[t.data_ptr() for t in scratch])
-    fn = f"srcf_{name}_{_SUFFIX[x.dtype]}"
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = f"srcf_{name}_{_SUFFIX[out.dtype]}"
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
         for i in range(0, n, sub):
             k = min(sub, n - i)
-            KERNEL.launch(fn, x[i:i + k].data_ptr(), out[i:i + k].data_ptr(),
+            KERNEL.launch(fn, *inputs(i, k), out[i:i + k].data_ptr(),
                           ctypes.cast(wptr, _P), ctypes.cast(sptr, _P), k, side, stream)
     return out
+
+
+def _segment(name, x, out, params, side):
+    """Run segment ``name`` (its input map ``x``) into ``out``."""
+    return _launch(name, out, _weights(name, params, x), side,
+                   lambda i, k: (x[i:i + k].data_ptr(),))
 
 
 def _check(name, x, channels):
@@ -490,17 +523,74 @@ def conv_tile(x, k, b, y0, y1=None, stride=1, pad=0):
     return KERNEL.load().srcf_conv_bf16_tile(*_conv_args(x, k, b, y0, y1, stride, pad))
 
 
+def _windows(plane, origins, dim):
+    """(B, dim, dim) windows of the 2-D ``plane`` at ``origins`` (B, 2)
+    (row, col); pixels outside the plane read 0, as the kernel reads them."""
+    r = torch.arange(dim, device=plane.device)
+    rows, cols = origins[:, :1] + r, origins[:, 1:] + r
+    inside = (((rows >= 0) & (rows < plane.shape[0]))[:, :, None]
+              & ((cols >= 0) & (cols < plane.shape[1]))[:, None, :])
+    wins = plane[rows.clamp(0, plane.shape[0] - 1)[:, :, None],
+                 cols.clamp(0, plane.shape[1] - 1)[:, None, :]]
+    return torch.where(inside, wins, plane.new_zeros(()))
+
+
+def fused_stage12_gather(plane, origins, dim, params):
+    """:func:`fused_stage12` of the windows of side ``dim`` whose top-left
+    pixels are ``origins`` (B, 2) int64 (row, col) of the 2-D ``plane``
+    (the padded scene, ``detect.cnn_pipeline.reference_pad``), on its
+    device; pixels outside the plane read 0. The kernel reads each
+    window's halo from the plane, so the (B, dim, dim) windows are never
+    written. Plain version on the CPU (windows gathered), CUDA kernel on
+    a card."""
+    if plane.dim() != 2 or plane.stride(1) != 1:
+        raise ValueError(f"fused_stage12: expected a 2-D plane with unit column stride, got "
+                         f"shape {tuple(plane.shape)} strides {plane.stride()}")
+    if origins.dtype != torch.int64 or origins.dim() != 2 or origins.shape[1] != 2:
+        raise TypeError(f"fused_stage12: origins must be (B, 2) int64, got "
+                        f"{origins.dtype} {tuple(origins.shape)}")
+    if origins.device != plane.device:
+        raise ValueError(f"fused_stage12: origins on {origins.device}, windows on "
+                         f"{plane.device}")
+    if dim % 8:
+        raise ValueError(f"fused_stage12: D % 8 == 0 required, got D = {dim}")
+    if plane.device.type == "cpu":
+        return fused_stage12_ref(_windows(plane, origins, dim), params)
+    if plane.device.type != "cuda":
+        raise ValueError(f"fused_stage12: unsupported device {plane.device}")
+    if plane.dtype not in _SUFFIX:
+        raise TypeError(f"fused_stage12: dtype {plane.dtype} not supported")
+    origins = origins.contiguous()
+    out = plane.new_empty((origins.shape[0], dim // 8, dim // 8, 192))
+    rows, cols = plane.shape
+    return _launch("fused_stage12", out, _weights("fused_stage12", params, plane), dim,
+                   lambda i, k: (plane.data_ptr(), plane.stride(0), rows, cols,
+                                 origins[i:i + k].data_ptr()))
+
+
 def fused_stage12(wins, params):
     """(B, D, D, 1) windows -> (B, D/8, D/8, 192); ``params`` from
     :func:`stage12_params`. Plain version on the CPU, CUDA kernel on a card."""
-    if wins.device.type == "cpu":
-        return fused_stage12_ref(wins, params)
-    wins = _check("fused_stage12", wins, 1)
-    d = wins.shape[1]
-    if d % 8:
-        raise ValueError(f"fused_stage12: D % 8 == 0 required, got D = {d}")
-    out = wins.new_empty((wins.shape[0], d // 8, d // 8, 192))
-    return _launch("fused_stage12", wins, out, _weights("fused_stage12", params, wins), d)
+    if wins.dim() != 4 or wins.shape[1] != wins.shape[2] or wins.shape[3] != 1:
+        raise ValueError(f"fused_stage12: expected (B, D, D, 1), got {tuple(wins.shape)}")
+    b, d = wins.shape[:2]
+    origins = torch.stack([torch.arange(b, device=wins.device) * d,
+                           torch.zeros(b, dtype=torch.int64, device=wins.device)], dim=1)
+    return fused_stage12_gather(wins.contiguous().view(b * d, d), origins, d, params)
+
+
+def trunk_s3(x, params):
+    """(B, g, g, 192) stage-2 outputs after their pool -> (B, g/2, g/2, 480);
+    ``params`` from :func:`trunk_segment_params` (``"s3"``). Plain version on
+    the CPU, CUDA kernel on a card."""
+    if x.device.type == "cpu":
+        return trunk_s3_ref(x, params)
+    x = _check("trunk_s3", x, 192)
+    g = x.shape[1]
+    if g % 2:
+        raise ValueError(f"trunk_s3: even g required, got g = {g}")
+    out = x.new_empty((x.shape[0], g // 2, g // 2, 480))
+    return _segment("trunk_s3", x, out, params, g)
 
 
 def trunk_s23(x, params):
@@ -514,7 +604,7 @@ def trunk_s23(x, params):
     if h % 16:
         raise ValueError(f"trunk_s23: h % 16 == 0 required, got h = {h}")
     out = x.new_empty((x.shape[0], h // 8, h // 8, 480))
-    return _launch("trunk_s23", x, out, _weights("trunk_s23", params, x), h)
+    return _segment("trunk_s23", x, out, params, h)
 
 
 def trunk_s45(x, params):
@@ -529,4 +619,4 @@ def trunk_s45(x, params):
     if g % 2:
         raise ValueError(f"trunk_s45: even g required, got g = {g}")
     out = x.new_empty((x.shape[0], 1024))
-    return _launch("trunk_s45", x, out, _weights("trunk_s45", params, x), g)
+    return _segment("trunk_s45", x, out, params, g)

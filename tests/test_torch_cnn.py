@@ -171,6 +171,107 @@ def test_plain_trunk_segments_bf16_close_to_f32(folded, jax_stages):
         assert err <= 2e-2 * np.abs(jax_stages[ref]).max(), (ref, err)
 
 
+def _sd(variables, layout):
+    """The port's folded state_dict in the canonical or the fused0 layout."""
+    sd = {k: v.numpy() for k, v in convert.flax_to_torch_state_dict(variables).items()}
+    sd = fold_state_dict(fuse_state_dict(sd) if layout == "fused0" else sd)
+    assert ("inception3a.fused0.conv.weight" in sd) == (layout == "fused0")
+    return sd
+
+
+@pytest.mark.parametrize("layout", ["canonical", "fused0"])
+def test_stage12_route_matches_jax_stages(variables, jax_stages, layout):
+    """The stage12 route's two entry points: fused_stage12_gather of the
+    windows laid into a scene of non-zero pixels == fused_stage12 of the
+    windows bit for bit and the JAX package's stage 1+2 + pool within
+    1e-5; trunk_s3 of that == its stage 3 + pool; the "s3" params are the
+    s23 list without conv2 and conv3."""
+    sd = _sd(variables, layout)
+    wins = jax_stages["wins"]
+    scene = np.random.default_rng(9).normal(1.0, 1.0, (DIM + 10, 2 * DIM + 17)).astype(np.float32)
+    origins = [(3, 4), (7, DIM + 12)]
+    for (r, c), w in zip(origins, wins):
+        scene[r:r + DIM, c:c + DIM] = w[..., 0]
+    p12, p3 = tf.stage12_params(sd), tf.trunk_segment_params(sd, "s3")
+    got = tf.fused_stage12_gather(torch.from_numpy(scene), torch.tensor(origins), DIM, p12)
+    torch.testing.assert_close(got, tf.fused_stage12(torch.from_numpy(wins), p12), rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), jax_stages["ref12"], rtol=0, atol=ATOL)
+    s3 = tf.trunk_s3(got, p3)
+    assert s3.shape == jax_stages["ref23"].shape
+    np.testing.assert_allclose(s3.numpy(), jax_stages["ref23"], rtol=0, atol=ATOL)
+    s23 = tf.trunk_segment_params(sd, "s23")
+    assert len(p3) == len(s23) - 4 and all(torch.equal(a, b) for a, b in zip(p3, s23[4:]))
+    torch.testing.assert_close(tf.trunk_s3(got, tf.pack_params("trunk_s3", p3)), s3,
+                               rtol=0, atol=0)
+
+
+def test_stage12_gather_window_edges(folded):
+    """Windows flush with each corner of a scene of non-zero pixels, one
+    inside it and two reaching past its edges: each == fused_stage12 of
+    the window cut from the zero-extended scene, bit for bit. So conv1's
+    pad 3 reads the window's own zeros, never the scene pixels beside the
+    window, and pixels past the scene read 0."""
+    params = tf.stage12_params(folded[2].state_dict())
+    h, w = DIM + 9, DIM + 14
+    scene = np.random.default_rng(12).normal(1.0, 1.0, (h, w)).astype(np.float32)
+    assert (scene != 0).all()
+    origins = [(0, 0), (0, w - DIM), (h - DIM, 0), (h - DIM, w - DIM), (4, 5), (-3, 2),
+               (h - DIM + 5, w - DIM + 2)]
+    ext = np.pad(scene, DIM)
+    crops = np.stack([ext[r + DIM:r + 2 * DIM, c + DIM:c + 2 * DIM] for r, c in origins])
+    got = tf.fused_stage12_gather(torch.from_numpy(scene), torch.tensor(origins), DIM, params)
+    ref = tf.fused_stage12(torch.from_numpy(crops[..., None]), params)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    # a halo read from the scene would differ: conv1 of the window at (4,
+    # 5) padded by its scene neighbours, not by zeros
+    k1, b1 = params[0].reshape(7, 7, 1, 64), params[1]
+    zero_pad = tf._conv_ref(torch.from_numpy(crops[4][None, None]), k1, b1, 2, 3)
+    scene_pad = tf._conv_ref(torch.from_numpy(scene[None, None, 1:DIM + 7, 2:DIM + 8]), k1, b1, 2)
+    assert zero_pad.shape == scene_pad.shape
+    assert (zero_pad - scene_pad).abs().max() > 0.1
+
+
+def test_stage12_route_bf16_close_to_f32(folded, jax_stages):
+    """fused_stage12_gather and trunk_s3 in bf16 (their plain versions)
+    stay within 2% of the largest f32 output of the JAX package's stages,
+    the ceiling the CUDA kernels are held to in bf16."""
+    sd = folded[2].state_dict()
+    plane = torch.from_numpy(np.concatenate(list(jax_stages["wins"][..., 0]), axis=1))
+    origins = torch.tensor([[0, 0], [0, DIM]])
+    bf = torch.bfloat16
+    got = tf.fused_stage12_gather(plane.to(bf), origins, DIM,
+                                  [p.to(bf) for p in tf.stage12_params(sd)])
+    s3 = tf.trunk_s3(torch.tensor(jax_stages["ref12"]).to(bf),
+                     [p.to(bf) for p in tf.trunk_segment_params(sd, "s3")])
+    for g, ref in ((got, "ref12"), (s3, "ref23")):
+        assert g.dtype == bf
+        err = np.abs(g.float().numpy() - jax_stages[ref]).max()
+        assert err <= 2e-2 * np.abs(jax_stages[ref]).max(), (ref, err)
+
+
+def test_stage12_checks_origins_and_devices():
+    """The gather form takes (B, 2) int64 origins on the plane's device and
+    D % 8 == 0, and refuses devices other than the CPU and CUDA."""
+    plane = torch.zeros(40, 40)
+    with pytest.raises(TypeError, match="int64"):
+        tf.fused_stage12_gather(plane, torch.zeros(2, 2, dtype=torch.int32), 32, [])
+    with pytest.raises(TypeError, match="int64"):
+        tf.fused_stage12_gather(plane, torch.zeros(2, 3, dtype=torch.int64), 32, [])
+    with pytest.raises(ValueError, match="D % 8"):
+        tf.fused_stage12_gather(plane, torch.zeros(2, 2, dtype=torch.int64), 30, [])
+    with pytest.raises(ValueError, match="origins on"):
+        tf.fused_stage12_gather(plane, torch.zeros(2, 2, dtype=torch.int64, device="meta"), 32, [])
+    with pytest.raises(ValueError, match="2-D plane"):
+        tf.fused_stage12_gather(plane[:, ::2], torch.zeros(2, 2, dtype=torch.int64), 16, [])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tf.fused_stage12_gather(torch.zeros(40, 40, device="meta"),
+                                torch.zeros(2, 2, dtype=torch.int64, device="meta"), 32, [])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tf.fused_stage12(torch.zeros(2, 32, 32, 1, device="meta"), [])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tf.trunk_s3(torch.zeros(2, 4, 4, 192, device="meta"), [])
+
+
 def test_packed_weights_are_the_fused_layout(folded):
     """The weight packing both versions read: each inception's wide 1x1 is
     the fused0 conv in (cin, cout) layout; shapes are checked, and weights
@@ -213,7 +314,9 @@ BF16, F32 = torch.bfloat16, torch.float32
     ("trunk_s45", 16, BF16, 4096, 1),
     ("trunk_s23", 128, F32, 4096, 5),
     ("trunk_s23", 128, F32, 512, 1),
-    ("fused_stage12", 256, F32, 512, 1)])
+    ("fused_stage12", 256, F32, 512, 1),
+    ("fused_stage12", 256, BF16, 4096, 1),   # 2 MiB a window: exactly the budget
+    ("trunk_s3", 32, BF16, 4096, 2)])
 def test_scratch_plan_sub_batches(name, side, dtype, batch, parts):
     """The sub-batches a segment runs in: as many windows as keep the
     scratch plan within SCRATCH_BUDGET_BYTES."""
@@ -237,22 +340,27 @@ def test_scratch_plan_holds_branch4_pooled_maps(side):
     assert s45[3] == (g, g, max(tf._cin(b) for b in tf._BLOCKS["s45"])) == (g, g, 832)
 
 
-@pytest.mark.parametrize("name,side,convs", [("trunk_s23", 128, 10), ("trunk_s45", 16, 28)])
+@pytest.mark.parametrize("name,side,convs", [("trunk_s23", 128, 10), ("trunk_s45", 16, 28),
+                                             ("trunk_s3", 32, 8)])
 def test_conv_plan_meets_tensor_core_rule(name, side, convs):
     """Every conv of P3 meets the tensor-core kernel's alignment rule in
-    bf16, and none in f32; of P2 only conv1 (one input channel) fails it."""
+    bf16, and none in f32; P2 launches only conv3 through the dispatch
+    (its conv1 and conv2 run inside its front kernel), and conv3 meets it."""
     plan = tf.conv_plan(name, side)
     assert len(plan) == convs and len({c.layer for c in plan}) == convs
     assert all(tf.tensor_core_ok(c) for c in plan)
     assert not any(tf.tensor_core_ok(c, F32) for c in plan)
-    assert [tf.tensor_core_ok(c) for c in tf.conv_plan("fused_stage12", 256)] == [False, True, True]
+    p2 = tf.conv_plan("fused_stage12", 256)
+    assert [(c.layer, c.side, tf.tensor_core_ok(c)) for c in p2] == [("conv3", 64, True)]
 
 
 def _replay(name, x, ws):
-    """trunk_s23 / trunk_s45 on the CPU as csrc/trunk.cu sequences them:
-    each conv of conv_plan through tf.conv on channel slices of maps laid
-    out at the start of scratch_plan's NaN-filled buffers, the pools
-    between them, branch 4's pooled input where the kernel keeps it."""
+    """fused_stage12 / trunk_s23 / trunk_s3 / trunk_s45 on the CPU as
+    csrc/trunk.cu sequences them: each conv of conv_plan through tf.conv
+    on channel slices of maps laid out at the start of scratch_plan's
+    NaN-filled buffers, the pools between them, branch 4's pooled input
+    where the kernel keeps it; fused_stage12's front kernel (conv1, pool,
+    conv2) writes its first map."""
     n, side = x.shape[0], x.shape[1]
     s = [torch.full((n,) + sh, float("nan"), dtype=x.dtype) for sh in tf.scratch_plan(name, side)]
     todo = list(zip(tf.conv_plan(name, side), ws[::2], ws[1::2]))
@@ -280,11 +388,19 @@ def _replay(name, x, ws):
         conv(pool(xin, at(pooled_buf, h, xin.shape[3]), 3, 1), out)
         return out
 
-    if name == "trunk_s23":
-        conv(pool(x, s[0], 3, 2), s[1])
-        conv(s[1], s[2])
-        a = inception(pool(s[2], s[3], 3, 2), s[4], s[1], s[5])
-        y = inception(a, s[4], s[1], s[6])
+    if name == "fused_stage12":
+        s[0].copy_(tf._front_ref(x, ws).permute(0, 2, 3, 1))
+        todo = list(zip(tf.conv_plan(name, side), ws[4::2], ws[5::2]))
+        conv(s[0], s[1])
+        out = _ceil_maxpool(tf._nchw(s[1]), 3, 2).permute(0, 2, 3, 1)
+    elif name in ("trunk_s23", "trunk_s3"):
+        if name == "trunk_s23":
+            conv(pool(x, s[0], 3, 2), s[1])
+            conv(s[1], s[2])
+            x = pool(s[2], s[3], 3, 2)
+            s = [s[4], s[1], s[5], s[6]]    # trunk_s3's scratch, as trunk_s23 passes it
+        a = inception(x, s[0], s[1], s[2])
+        y = inception(a, s[0], s[1], s[3])
         out = _ceil_maxpool(tf._nchw(y), 3, 2).permute(0, 2, 3, 1)
     else:
         y = x
@@ -298,18 +414,21 @@ def _replay(name, x, ws):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("segment", ["s23", "s45"])
+@pytest.mark.parametrize("segment", ["s23", "s45", "s3", "stage12"])
 def test_conv_plan_replays_segments(folded, jax_stages, segment, dtype):
     """conv_plan and scratch_plan, replayed in the kernel's order with its
     buffer reuse, give the plain version bit for bit and, in f32, the JAX
     package's stages within 1e-5; so the offsets, strides and splits that
     csrc/trunk.cu launches (and chip_smoke.py times one by one) compute
     the segment."""
-    name = f"trunk_{segment}"
-    src, ref = {"s23": ("c1", "ref23"), "s45": ("ref23", "ref45")}[segment]
+    sd = folded[2].state_dict()
+    name = "fused_stage12" if segment == "stage12" else f"trunk_{segment}"
+    src, ref = {"s23": ("c1", "ref23"), "s45": ("ref23", "ref45"), "s3": ("ref12", "ref23"),
+                "stage12": ("wins", "ref12")}[segment]
     x = torch.tensor(jax_stages[src]).to(dtype)
-    packed = tf.pack_params(name, tf.trunk_segment_params(folded[2].state_dict(), segment),
-                            dtype=dtype)
+    params = (tf.stage12_params(sd) if segment == "stage12"
+              else tf.trunk_segment_params(sd, segment))
+    packed = tf.pack_params(name, params, dtype=dtype)
     got = _replay(name, x, packed.tensors)
     torch.testing.assert_close(got, getattr(tf, name)(x, packed), rtol=0, atol=0)
     if dtype == F32:
