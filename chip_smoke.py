@@ -46,6 +46,19 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    ppm*m above background, saliency in [0, 1] with nodata stamped, plume
    list and IME CSV written) and prints stage seconds and peak device
    memory.
+4b. The multimodal CMF ("multimodal" line): the same recipe with two
+   background modes (the first half of the lines raised by MODE_OFFSET),
+   through run_flightline(bgmodes=2) with IME, its K1/K2 launches counted
+   from zero (with eigh calls and f64-gated columns, per chunk); then
+   srcfinder_torch.cmf.cli -k 3 -r -f -m in a process of its own, and the
+   bgmodes=2 CMF in float64 on the card with its labels. The labels must
+   find the two modes (agreement > LABEL_AGREEMENT up to a swap in every
+   column), the f32 map lie within MM_F32_TOL of the f64 map's maximum and
+   the plume's z exceed 10; K1 and K2 at the run's mode-1 masks of its
+   padded last chunk (modes empty in the padded columns) with beta from
+   the full column's count, in f32 and f64, against their plain versions
+   (TOL, the argmin check, repeats bit-identical). Prints seconds per
+   stage and peak device memory; the scene is deleted after.
 5. The exact dense CNN's trunk kernels (fused_stage12, trunk_s23,
    trunk_s3, trunk_s45) against their plain versions, on windows of 256 x
    256 gathered from a 16-line strip cut through the plume of the scene's
@@ -109,8 +122,16 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    non-empty and equal to masks_for_flightline on the CPU over the same
    file, that K1/K2 launched, and K1/K2 at this chunk shape (12,000 x 256
    x 72, f32) against their plain versions (TOL, repeats bit-identical);
-   prints stage seconds, peak device memory, the windows' peaks, and the
-   unblocked phase pass's peak at the pixel ceiling (8,352 lines).
+   prints stage seconds, the fused read+masks phase by part (disk reads
+   and slab taps in the reader thread; pixel tests, host growth and block
+   waits in the main one), peak device memory, the windows' peaks, and
+   the unblocked phase pass's peak at the pixel ceiling (8,352 lines).
+   Then times the fused read's band runs of the file through the old
+   memmap fancy index, DirectFile with O_DIRECT, DirectFile with
+   SRCFINDER_DIRECT_IO=0 (the port's mapped copies) and one pread per run
+   per line (the JAX package's buffered path; it and the memmap index are
+   kept here only), in turns per 500-line block, byte-equal, with the
+   mode each file ended in ("readers").
 
 Any failed phase exits non-zero without the result line. The last line
 of standard output is {"ok": true, "device": {...}}.
@@ -193,6 +214,13 @@ DILATED_REACH = 224
 EDGE_MARGINS = (0, 16, 32, 64, 96, 128, 160, 192, 224, 256)
 CARD_BYTES = 80e9
 DILATED_SLOWDOWN = 3.0
+# the two-mode scene (phase 4b): the first half of the lines raised in every
+# band by the offset of tests/test_cmf_pipeline.py:259; k-means must find
+# the two halves (label agreement up to a swap) in every column; the f32
+# map's bound against the f64 one is that test's (of the f64 map's maximum)
+MODE_OFFSET = 8.0
+LABEL_AGREEMENT = 0.99
+MM_F32_TOL = 5e-3
 # the real-length flightline (phase 8): 12,000 lines, on the 32-line grid
 LONG_SCENE = (12000, 598, 425)
 LONG_PLUME = (slice(6000, 6040), slice(290, 310))
@@ -268,41 +296,54 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def chunk_inputs(dtype, gen, lines=L):
-    """Radiance-like chunk of ``lines`` lines and the CMF's own
-    intermediates for it: the kernels' inputs exactly as
-    matched_filter_columns forms them, and the parts of _loo_nll around
-    the sweep (``nll_parts``)."""
+def sweep_inputs(x, m, n_loo=None):
+    """The CMF's own intermediates of ``x`` (invalid rows zeroed) under
+    the mask ``m`` (the valid rows, or a background mode's): the
+    correlation matrices, the kernels' inputs exactly as
+    matched_filter_columns forms them, with beta from the count ``n_loo``
+    (the mask's count if None), and the parts of _loo_nll around the
+    sweep (``nll_parts``)."""
     import torch
     from srcfinder_torch.cmf import matched_filter as mfmod
     from srcfinder_torch.ops.moments import masked_moments_ref
+    n, mu, S = masked_moments_ref(x, m)
+    n_loo = n if n_loo is None else n_loo
+    d = torch.sqrt(torch.clamp(torch.diagonal(S, dim1=1, dim2=2), min=1e-30))
+    Rw = S / (d[:, :, None] * d[:, None, :])
+    lam, V = torch.linalg.eigh(Rw)
+    Zc = torch.bmm(((x - mu[None]) * m[:, :, None]).permute(1, 0, 2), V / d[:, :, None])
+    alphas = torch.as_tensor(mfmod.default_alphas(), dtype=x.dtype, device=x.device)
+    beta = (1.0 - alphas)[None, :] / torch.clamp(n_loo - 1.0, min=1.0)[:, None]
+    glam = (n_loo[:, None] * beta)[:, None, :] * lam[:, :, None] + alphas[None, None, :]
+    safe_glam = torch.where(glam > 0, glam, torch.ones_like(glam))
+    inv_glam = 1.0 / safe_glam
+    # nll = where(ok & q_ok, base + ssum * scale, inf), as _loo_nll forms it
+    nll_parts = dict(
+        base=0.5 * (x.shape[2] * math.log(2.0 * math.pi)
+                    + 2.0 * torch.log(d).sum(dim=1)[:, None]
+                    + torch.log(safe_glam).sum(dim=1)),
+        scale=(1.0 / (2.0 * torch.clamp(n_loo, min=1.0)))[:, None],
+        ok=torch.all(glam > 0, dim=1))
+    return Rw, Zc.permute(1, 0, 2), inv_glam, beta, nll_parts
+
+
+def chunk_inputs(dtype, gen, lines=L):
+    """Radiance-like chunk of ``lines`` lines and the CMF's own
+    intermediates for it (``sweep_inputs``)."""
+    import torch
+    from srcfinder_torch.cmf import matched_filter as mfmod
     x = (torch.randn(lines, C, B, generator=gen, device="cuda") * 0.5 + 4.0
          ).abs_().add_(0.5).to(dtype)
     x[::37, :, 3] = -1.0                       # invalid rows in every column
     m = mfmod.valid_mask(x).to(dtype)
     x = torch.where(m.bool()[:, :, None], x, torch.zeros((), dtype=dtype, device="cuda"))
-    n, mu, S = masked_moments_ref(x, m)
-    d = torch.sqrt(torch.clamp(torch.diagonal(S, dim1=1, dim2=2), min=1e-30))
-    Rw = S / (d[:, :, None] * d[:, None, :])
-    lam, V = torch.linalg.eigh(Rw)
-    Zc = torch.bmm(((x - mu[None]) * m[:, :, None]).permute(1, 0, 2), V / d[:, :, None])
-    alphas = torch.as_tensor(mfmod.default_alphas(), dtype=dtype, device="cuda")
-    beta = (1.0 - alphas)[None, :] / torch.clamp(n - 1.0, min=1.0)[:, None]
-    glam = (n[:, None] * beta)[:, None, :] * lam[:, :, None] + alphas[None, None, :]
-    safe_glam = torch.where(glam > 0, glam, torch.ones_like(glam))
-    inv_glam = 1.0 / safe_glam
+    Rw, Z, inv_glam, beta, nll_parts = sweep_inputs(x, m)
     # real covariances keep q = 1 - beta*r > 0 (leverage < 1); a far
     # steeper beta on 8 columns drives q far below 0 there, for every alpha
     # but alpha = 1 (beta = 0), so the q_ok flag path runs too, with no q
     # near 0 where f32 rounding could flip it
     beta[-8:] *= 1e9
-    # nll = where(ok & q_ok, base + ssum * scale, inf), as _loo_nll forms it
-    nll_parts = dict(
-        base=0.5 * (B * math.log(2.0 * math.pi) + 2.0 * torch.log(d).sum(dim=1)[:, None]
-                    + torch.log(safe_glam).sum(dim=1)),
-        scale=(1.0 / (2.0 * torch.clamp(n, min=1.0)))[:, None],
-        ok=torch.all(glam > 0, dim=1))
-    return x, m, Rw, Zc.permute(1, 0, 2), inv_glam, beta, nll_parts
+    return x, m, Rw, Z, inv_glam, beta, nll_parts
 
 
 def c8_inputs(x, m, Z, inv_glam, beta, nll_parts):
@@ -681,9 +722,11 @@ def stage12_layers():
     print(json.dumps({"stage12_layers": out, "window": WIN}))
 
 
-def write_scene(workdir, gen):
+def write_scene(workdir, gen, name="ang20200924t211102_rdn_v2y1_img", modes=False):
     """Seeded AVIRIS-NG-shaped radiance (BIL f32) with a plume in the CH4
-    window, written in line blocks; plus the CH4 unit-absorption library."""
+    window, written in line blocks; plus the CH4 unit-absorption library.
+    ``modes``: two background modes, the first half of the lines raised by
+    MODE_OFFSET in every band (tests/test_cmf_pipeline.py:259)."""
     import numpy as np
     import torch
     from srcfinder_torch.core.envi import create_envi
@@ -695,7 +738,7 @@ def write_scene(workdir, gen):
                          "3.1", "11", "North", "WGS-84", "units=Meters",
                          "rotation=0"],
             "wavelength": [f"{w:.2f}" for w in np.linspace(380, 2500, nb)]}
-    rdn = os.path.join(workdir, "ang20200924t211102_rdn_v2y1_img")
+    rdn = os.path.join(workdir, name)
     img = create_envi(rdn + ".hdr", meta)
     mm = img.open_memmap(interleave="source", writable=True)   # (L, bands, S)
     absorb = torch.ones(nb, device="cuda")
@@ -704,6 +747,8 @@ def write_scene(workdir, gen):
         r1 = min(nl, r0 + 256)
         blk = (torch.randn(r1 - r0, ns, nb, generator=gen, device="cuda")
                * 0.5 + 4.0).abs_().add_(0.5)
+        if modes:
+            blk[:max(0, min(r1, nl // 2) - r0)] += MODE_OFFSET
         lo, hi = max(r0, PLUME[0].start), min(r1, PLUME[0].stop)
         if lo < hi:
             blk[lo - r0:hi - r0, PLUME[1]] *= absorb
@@ -799,6 +844,169 @@ def phase_main_path(workdir):
     print(json.dumps({"main_path": summary}))
     profile_stages(rdn, libf, wf, prods["cmf"], workdir)
     return launches, prods["cmf"], rdn, libf
+
+
+def multimodal_chunk_inputs(x_active, dtype):
+    """The multimodal run's last column chunk (its 86 scene columns padded
+    with zero columns to C, as robust_mf_image pads it) in ``dtype``, and
+    the kernels' inputs of its mode-1 fit as the multimodal path builds
+    them: k-means labels from the port's own PCA and seeding, the mode's
+    mask (about half of each scene column's rows; none in the padded
+    columns, where every point is 0 and k-means puts all in mode 0) and
+    beta from the full column's count (n_loo). The steep beta of
+    ``chunk_inputs`` goes on 8 scene columns, so q_ok takes both values."""
+    import torch
+    from srcfinder_torch.cmf import matched_filter as mfmod
+    from srcfinder_torch.cmf.kmeans import kmeans_columns, masked_pca_project
+    c0 = (SCENE[1] - 1) // C * C
+    x = x_active[:, c0:].to(dtype)
+    x = torch.cat([x, x.new_zeros(x.shape[0], C - x.shape[1], x.shape[2])], dim=1)
+    m = mfmod.valid_mask(x).to(dtype)
+    x = torch.where(m.bool()[:, :, None], x, torch.zeros((), dtype=dtype, device="cuda"))
+    labels, _ = kmeans_columns(masked_pca_project(x, m, 6), m, 2)
+    mask = (m.bool() & (labels == 1)).to(dtype)
+    Rw, Z, inv_glam, beta, parts = sweep_inputs(x, mask, n_loo=m.sum(dim=0))
+    beta[:8] *= 1e9
+    counts = mask.sum(dim=0)
+    return (x, mask, Z, inv_glam, beta, parts), dict(
+        scene_columns=SCENE[1] - c0, empty_mode_columns=int((counts == 0).sum()),
+        mode_rows_median=float(counts[:SCENE[1] - c0].median()))
+
+
+def phase_multimodal(workdir, libf, wf):
+    """Phase 4b: the multimodal CMF on a two-mode scene (MODE_OFFSET):
+    run_flightline(bgmodes=2) with IME (launch counts zeroed just before,
+    read just after; K1/K2 and eigh launches, f64-gated columns), the CMF
+    CLI with -k 3 -r -f -m, and the bgmodes=2 CMF in f64 on the card with
+    its labels. Checks the labels, the f32 map against the f64 one, the
+    plume's z, and K1/K2 at the run's mode-1 masks and n_loo against
+    their plain versions. Returns (launches, kernel checks)."""
+    import numpy as np
+    import torch
+    from srcfinder_torch.cmf import pipeline as tpl
+    from srcfinder_torch.core.envi import open_envi
+    from srcfinder_torch.flow.pipeline_cli import run_flightline
+    from srcfinder_torch.ops import loo, moments
+
+    gen = torch.Generator(device="cuda").manual_seed(2802)
+    t0 = time.time()
+    rdn, _ = write_scene(workdir, gen, name="ang20200924t213000_rdn_v2y1_img", modes=True)
+    setup_s = time.time() - t0
+    nl, ns, _ = SCENE
+    nblocks = -(-ns // C)
+
+    # count eigh calls and the f64 gate's columns during the run
+    calls = {"eigh": 0, "f64_columns": 0}
+    eigh, f64_cols = torch.linalg.eigh, tpl._f64_columns_multimodal
+
+    def count_eigh(*a, **k):
+        calls["eigh"] += 1
+        return eigh(*a, **k)
+
+    def count_f64(xblk, cols, *a, **k):
+        calls["f64_columns"] += len(cols)
+        return f64_cols(xblk, cols, *a, **k)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    moments.KERNEL.reset()
+    loo.KERNEL.reset()
+    torch.linalg.eigh, tpl._f64_columns_multimodal = count_eigh, count_f64
+    try:
+        t0 = time.time()
+        prods = run_flightline(rdn, libf, wf, os.path.join(workdir, "out_mm"), prob_thr=0.0,
+                               do_ime=True, bgmodes=2, device="cuda",
+                               progress=lambda msg: print(msg, flush=True))
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+    finally:
+        torch.linalg.eigh, tpl._f64_columns_multimodal = eigh, f64_cols
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"masked_moments": moments.KERNEL.launches, "loo_sweep": loo.KERNEL.launches}
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the multimodal path")
+
+    # the CLI's whole multimodal flag set, in a process of its own
+    torch.cuda.empty_cache()
+    out_k3 = os.path.join(workdir, "cmf_k3")
+    t0 = time.time()
+    cli = subprocess.run([sys.executable, "-m", "srcfinder_torch.cmf.cli", rdn, libf, out_k3,
+                          "-k", "3", "-r", "-f", "-m"], cwd=HERE, capture_output=True,
+                         text=True, timeout=600)
+    cli_s = time.time() - t0
+    if cli.returncode != 0:
+        fail(f"cmf.cli -k 3 -r -f -m failed:\n{cli.stdout[-2000:]}\n{cli.stderr[-4000:]}")
+    k3 = open_envi(out_k3)
+    k3_ppmm = k3.load()[..., 3]
+    k3_labels = open_envi(out_k3 + "_bgmeta").load()[..., 0]
+    if "bgmodes=3" not in ",".join(k3.metadata["model parameters"]):
+        fail(f"cmf.cli -k 3 header: {k3.metadata['model parameters']}")
+    if not (np.isfinite(k3_ppmm).all() and set(np.unique(k3_labels)) <= {0, 1, 2}):
+        fail("cmf.cli -k 3: non-finite map or labels outside 0..2")
+
+    # the same CMF in f64 on the card, with its labels
+    out64 = os.path.join(workdir, "cmf_mm_f64")
+    t0 = time.time()
+    res64 = tpl.robust_mf_image(rdn, libf, out64, bgmodes=2, dtype=np.float64,
+                                save_bgmeta=True, device="cuda")
+    torch.cuda.synchronize()
+    f64_s = time.time() - t0
+
+    ppmm = open_envi(prods["cmf"]).load()[..., 3]
+    ppmm64 = open_envi(out64).load()[..., 3]
+    labels = open_envi(out64 + "_bgmeta").load()[..., 0]
+    valid = ppmm64 != -9999.0
+    if not np.array_equal(valid, ppmm != -9999.0) or not np.isfinite(ppmm[valid]).all():
+        fail("multimodal: f32 and f64 maps disagree on validity, or f32 not finite")
+    if not (ppmm[0, :3] == -9999.0).all():
+        fail("multimodal: nodata stamp")
+    true = (np.arange(nl) < nl // 2)[:, None]
+    agree = ((labels == 0) == true) & valid
+    agree = agree.sum(axis=0) / valid.sum(axis=0)
+    agree = np.maximum(agree, 1.0 - agree)
+    err = np.abs(ppmm[valid] - ppmm64[valid]).max() / np.abs(ppmm64[valid]).max()
+    plume = ppmm[PLUME].mean()
+    bg, bg_sd = ppmm[valid].mean(), ppmm[valid].std()
+    z = (plume - bg) / (bg_sd / np.sqrt(ppmm[PLUME].size))
+
+    # K1 and K2 at this run's mode masks and n_loo
+    x_active = torch.from_numpy(np.ascontiguousarray(
+        open_envi(rdn).read_band_window(350, 422).transpose(0, 2, 1))).to("cuda")
+    checks, chunk = {}, None
+    for dtype, name in ((torch.float32, "multimodal"), (torch.float64, "multimodal_float64")):
+        inputs, chunk = multimodal_chunk_inputs(x_active, dtype)
+        x, mask, Z, ig, beta, parts = inputs
+        checks.update(cmf_kernel_checks(name, x, mask, Z, ig, beta, parts))
+        del inputs, x, mask, Z, ig, beta, parts
+        torch.cuda.empty_cache()
+    del x_active
+    for f in (rdn, rdn + ".hdr"):
+        os.remove(f)
+
+    summary = dict(
+        scene=list(SCENE), mode_offset=MODE_OFFSET, setup_s=setup_s, run_s=run_s,
+        stage_s=prods["timers"], peak_mem_bytes=peak, launches=launches,
+        per_chunk=dict(chunks=nblocks, masked_moments=launches["masked_moments"] / nblocks,
+                       loo_sweep=launches["loo_sweep"] / nblocks,
+                       eigh=calls["eigh"] / nblocks),
+        f64_gate_columns=calls["f64_columns"], cli_k3_s=cli_s, cmf_f64_s=f64_s,
+        f64_gate_columns_in_f64_run=res64["f64_columns"],
+        label_agreement_min=float(agree.min()), f32_vs_f64_rel=float(err),
+        plume_z=float(z), plume_ppmm=float(plume), background_ppmm=float(bg),
+        background_sd=float(bg_sd), kernel_chunk=chunk,
+        kernels={k[0] + ("" if k[1] == "multimodal" else "_f64"):
+                 {f: v[f] for f in ("max_rel_err", "bit_identical", "ms", "plain_ms")}
+                 for k, v in checks.items()})
+    print(json.dumps({"multimodal": summary}))
+    if not agree.min() > LABEL_AGREEMENT:
+        fail(f"multimodal: k-means labels agree with the two modes on only "
+             f"{agree.min():.4f} of a column's pixels")
+    if not err < MM_F32_TOL:
+        fail(f"multimodal: f32 map {err:.3g} of the f64 map's maximum from it")
+    if not z > 10:
+        fail(f"multimodal: plume z = {z:.1f}")
+    return launches, checks
 
 
 _PROFILER_MARKERS = ("Buffer Flush", "Activity Buffer Request")
@@ -1441,6 +1649,102 @@ def write_long_scene(workdir, gen):
     return rdn
 
 
+def memmap_read_lines_bands(img, r0, r1, bands):
+    """The port's band-subset read before the run-merged reader: a fancy
+    index of the bands out of a (lines, samples, bands) view of the file's
+    memmap (kept here only, to time it against its successor)."""
+    import numpy as np
+    bip = img.open_memmap(interleave="bip")
+    return np.asarray(bip[r0:r1][:, :, [int(b) for b in bands]])
+
+
+def pread_read_lines_bands(img, fd, r0, r1, bands):
+    """The JAX package's buffered band-subset read: one ``pread`` per run
+    of adjacent bands per line, straight into the (rows, bands, samples)
+    result, returned as its (rows, samples, bands) view (kept here only,
+    to time it against the port's mapped copies)."""
+    import numpy as np
+    bb = img.ncols * img.dtype.itemsize
+    lb = img.nbands * bb
+    out = np.empty((r1 - r0, len(bands), img.ncols), img.dtype)
+    dest = out.view(np.uint8).reshape(r1 - r0, -1)
+    i = 0
+    while i < len(bands):
+        j = i + 1
+        while j < len(bands) and bands[j] == bands[j - 1] + 1:
+            j += 1
+        for li in range(r0, r1):
+            row = memoryview(dest[li - r0, i * bb:j * bb])
+            if os.preadv(fd, [row], img.offset + li * lb + bands[i] * bb) != len(row):
+                fail(f"short pread at line {li}")
+        i = j
+    return out.transpose(0, 2, 1)
+
+
+def reader_times(rdn, libf, step=500):
+    """The masks' and CMF's requested band runs of ``rdn`` (the union the
+    fused read takes: the mask tests' bands, band 0, the CH4 window and
+    the RGB bands), read in blocks of ``step`` lines through three
+    readers in turns: the old memmap fancy index, DirectFile with
+    O_DIRECT, DirectFile with SRCFINDER_DIRECT_IO=0 (its copies out of
+    the file's mapping, the port's default), and one ``pread`` per run
+    per line (the JAX package's buffered path). Each read's result (the
+    new readers return a transposed view) then becomes a contiguous
+    (rows, samples, bands) array, the old reader's layout, and all must
+    be byte-equal. Returns seconds per reader (the reads, and apart the
+    conversions), bytes read and the mode each DirectFile ended in."""
+    import numpy as np
+    from srcfinder_torch.cmf.pipeline import active_range_for_library
+    from srcfinder_torch.core.envi import open_envi
+    from srcfinder_torch.masks.cli import flightline_mask_config
+    from srcfinder_torch.masks.sds import needed_bands
+    img = open_envi(rdn + ".hdr")
+    params, _, _, wl = flightline_mask_config(img, rdn)
+    a0, a1 = active_range_for_library(libf)
+    req = sorted(set(needed_bands(wl, params).tolist()) | {0} | set(range(a0 - 1, a1))
+                 | {60, 42, 24})
+    imgs = {}
+    prev = os.environ.get("SRCFINDER_DIRECT_IO")
+    try:
+        for name, flag in (("direct", "1"), ("buffered", "0")):
+            os.environ["SRCFINDER_DIRECT_IO"] = flag
+            imgs[name] = open_envi(rdn + ".hdr")
+            imgs[name]._direct()                    # opens in the mode the flag sets
+    finally:
+        if prev is None:
+            os.environ.pop("SRCFINDER_DIRECT_IO", None)
+        else:
+            os.environ["SRCFINDER_DIRECT_IO"] = prev
+    fd = os.open(rdn, os.O_RDONLY)
+    readers = {"memmap": lambda r0, r1: memmap_read_lines_bands(img, r0, r1, req),
+               "direct": lambda r0, r1: imgs["direct"].read_lines_bands(r0, r1, req),
+               "buffered": lambda r0, r1: imgs["buffered"].read_lines_bands(r0, r1, req),
+               "pread": lambda r0, r1: pread_read_lines_bands(img, fd, r0, r1, req)}
+    names = list(readers)
+    secs = dict.fromkeys(names, 0.0)
+    bip = dict.fromkeys(names, 0.0)
+    for i, r0 in enumerate(range(0, img.nrows, step)):
+        r1 = min(img.nrows, r0 + step)
+        outs = {}
+        k = i % len(names)
+        for name in names[k:] + names[:k]:              # each reader first in turn
+            t0 = time.perf_counter()
+            out = readers[name](r0, r1)
+            t1 = time.perf_counter()
+            outs[name] = np.ascontiguousarray(out)
+            secs[name] += t1 - t0
+            bip[name] += time.perf_counter() - t1
+        for name in names[1:]:
+            if not (outs[name].shape == outs["memmap"].shape
+                    and outs[name].tobytes() == outs["memmap"].tobytes()):
+                fail(f"reader {name} differs from the memmap read at lines {r0}:{r1}")
+    os.close(fd)
+    return dict(seconds=secs, to_contiguous_seconds=bip, bands=len(req), runs=int(1 + np.count_nonzero(np.diff(req) > 1)),
+                bytes=img.nrows * img.ncols * len(req) * img.dtype.itemsize, step=step,
+                modes={n: im._direct().mode for n, im in imgs.items()},
+                default_mode=open_envi(rdn + ".hdr")._direct().mode)
+
+
 def phase_long_flightline(workdir, libf, wf):
     """A real-length flightline through run_flightline with the masks and
     IME (phase 8). Returns the K1/K2 checks at its chunk shape."""
@@ -1517,6 +1821,9 @@ def phase_long_flightline(workdir, libf, wf):
     _timed(stats, f"unblocked_{ceiling}", lambda: tfp.fcn_phase_saliency(model, x))
     del x, model
 
+    # the fused read's readers, old and new, on the same file
+    readers = reader_times(rdn, libf)
+
     # K1 and K2 at this flightline's chunk shape
     torch.cuda.empty_cache()
     kgen = torch.Generator(device="cuda").manual_seed(1200)
@@ -1528,6 +1835,7 @@ def phase_long_flightline(workdir, libf, wf):
     summary = dict(
         scene=list(LONG_SCENE), setup_s=setup_s, disk_free_gb_after_write=free_gb,
         run_s=total_s, stage_s=prods["timers"],
+        read_masks_parts=prods.get("read+masks parts"), readers=readers,
         fcn_method="phase-blocked" if seen["blocked"] else "unblocked",
         fcn_windows=seen["windows"], peak_mem_bytes=peak, plume_z=float(z),
         plume_ppmm=float(plume), background_ppmm=float(bg), background_sd=float(bg_sd),
@@ -1679,6 +1987,8 @@ def main():
     try:
         flightline, cmf_product, rdn, libf = phase_main_path(workdir)
         launches = {k: ("run_flightline", n) for k, n in flightline.items()}
+        mm_launches, mm_checks = phase_multimodal(workdir, libf, write_weights(workdir))
+        checks.update(mm_checks)
         strip = write_strip(workdir, cmf_product)
         cnn_weights = write_cnn_weights(workdir)
         checks.update(phase_trunk_kernels(strip, cnn_weights))
@@ -1721,8 +2031,9 @@ def main():
     # level in the line; the others (the CMF's cond-gated f64 recompute,
     # the 12,000-line flightline's chunk, 512-window batches) nested
     trunk_configs = ("bfloat16_b4096", "float32_b512", "bfloat16_b512")
-    configs = {"masked_moments": ("float32", "float64", "float64_c8", "float32_L12000"),
-               "loo_sweep": ("float32", "float64", "float64_c8", "float32_L12000"),
+    cmf_configs = ("float32", "float64", "float64_c8", "float32_L12000", "multimodal",
+                   "multimodal_float64")
+    configs = {"masked_moments": cmf_configs, "loo_sweep": cmf_configs,
                **dict.fromkeys(TRUNK_KERNELS, trunk_configs)}
     kernels = []
     for kname, (src, rep) in meta.items():
@@ -1734,6 +2045,10 @@ def main():
         entry.update({k: checks[(kname, top)][k] for k in ks})
         for c in others:
             entry[c] = {k: checks[(kname, c)][k] for k in ks}
+            if c.startswith("multimodal"):
+                # the launches of the multimodal run (phase 4b), from zero
+                entry[c].update(launches=mm_launches[kname],
+                                launches_in="run_flightline bgmodes=2")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,8 +1,8 @@
-"""CLI for the robust matched filter (unimodal), flag-compatible with the
-reference (reference: cmf/robust_mf.py:139-167).
+"""CLI for the robust matched filter, flag-compatible with the reference
+(reference: cmf/robust_mf.py:139-167).
 
-usage: python -m srcfinder_torch.cmf.cli [-v] [-m] [-R] [-M MODEL]
-           [--rgb_bands R,G,B] [--dtype float32|float64]
+usage: python -m srcfinder_torch.cmf.cli [-v] [-k K] [--pcadim N] [-r] [-f]
+           [-m] [-R] [-M MODEL] [--rgb_bands R,G,B] [--dtype float32|float64]
            [--col_chunk N] [--cond_thresh T] [--device cuda|cpu]
            INPUT LIBRARY OUTPUT
 """
@@ -19,6 +19,15 @@ def build_parser():
     parser = argparse.ArgumentParser(description="Robust MF (PyTorch/CUDA)")
     parser.add_argument("-v", "--verbose", action="store_true",
                         help="verbose output")
+    parser.add_argument("-k", "--kmeans", type=int, default=1,
+                        help="number of columnwise modes (k-means clusters)")
+    parser.add_argument("--pcadim", type=int, default=6,
+                        help="number of PCA dims (for k-means clusters>1)")
+    parser.add_argument("-r", "--reject", action="store_true",
+                        help="enable multimodal covariance outlier rejection")
+    parser.add_argument("-f", "--full", action="store_true",
+                        help="regularize multimodal estimates with the full "
+                             "column covariance")
     parser.add_argument("--rgb_bands", default="60,42,24",
                         help="comma-separated list of RGB channels")
     parser.add_argument("-m", "--metadata", action="store_true",
@@ -62,7 +71,8 @@ def main(argv=None):
     stime = time.time()
     out = robust_mf_image(
         args.input, args.library, args.output,
-        model=args.model, reflectance=args.reflectance,
+        model=args.model, bgmodes=args.kmeans, pcadim=args.pcadim,
+        reject=args.reject, regfull=args.full, reflectance=args.reflectance,
         rgb_bands=rgb, save_bgmeta=args.metadata,
         col_chunk=args.col_chunk,
         dtype=np.float64 if args.dtype == "float64" else np.float32,

@@ -1,12 +1,18 @@
 """CMF image pipeline: ENVI in -> matched filter on the device -> ENVI out.
 
-Port of the JAX package's ``cmf/pipeline.py`` (unimodal). Mirrors the
-reference script's I/O contract (reference: cmf/robust_mf.py __main__,
-:139-405): 4-band BIP float64 output (RGB radiance + CH4 ppm*m),
-nodata-stamped MF band, per-column stats CSV, optional bgmeta image with
-cluster id and alpha index. The active-band window is read once and
-moved to the device whole; columns are processed there in fixed-shape
-chunks of ``col_chunk`` (the last chunk padded with zero columns).
+Port of the JAX package's ``cmf/pipeline.py``, unimodal and multimodal
+(``bgmodes > 1``). Mirrors the reference script's I/O contract
+(reference: cmf/robust_mf.py __main__, :139-405): 4-band BIP float64
+output (RGB radiance + CH4 ppm*m), nodata-stamped MF band, per-column
+stats CSV, optional bgmeta image with cluster id and alpha index. The
+active-band window is read once and moved to the device whole; columns
+are processed there in fixed-shape chunks of ``col_chunk`` (the last
+chunk padded with zero columns).
+
+The JAX package's backend routing and compile warm-up
+(``_route_backend``, ``warm_tpu_async``) are not carried: they route the
+CMF to the host by the TPU link's measured bandwidth and stage the TPU's
+compile, and nothing on a card corresponds.
 """
 
 from __future__ import annotations
@@ -66,8 +72,26 @@ def _f64_columns(xblk, cols, abscf, alphas, model, reflectance):
     return res.mf.cpu().numpy(), res.alpha_index.cpu().numpy()
 
 
+def _f64_columns_multimodal(xblk, cols, abscf, alphas, model, reflectance,
+                            bgmodes, pcadim, reject, regfull):
+    """Recompute the columns ``cols`` of a device chunk through the whole
+    multimodal path (PCA, k-means, per-mode fits) in float64 on the same
+    device: the f64 answer for those columns, not f32 labels with f64
+    fits. Returns mf, valid, labels, alpha_pix as numpy (L, len(cols))."""
+    sub = xblk[:, torch.as_tensor(cols, device=xblk.device), :].to(torch.float64)
+    m = mfmod.valid_mask(sub).to(torch.float64)
+    res = mfmod.matched_filter_columns_multimodal(
+        sub, m, torch.as_tensor(abscf, dtype=torch.float64, device=sub.device),
+        torch.as_tensor(alphas, dtype=torch.float64, device=sub.device),
+        bgmodes=bgmodes, pcadim=pcadim, reject=reject, regfull=regfull,
+        model=model, reflectance=reflectance)
+    return tuple(t.cpu().numpy() for t in (res.mf, res.valid, res.labels, res.alpha_pix))
+
+
 def robust_mf_image(infile: str, library: str, outfile: str,
                     model: str = "looshrinkage", bgmodes: int = 1,
+                    pcadim: int = 6, reject: bool = False,
+                    regfull: bool = False,
                     reflectance: bool = False, rgb_bands=(60, 42, 24),
                     save_bgmeta: bool = False, col_chunk: int = 256,
                     dtype=np.float32, verbose: bool = False,
@@ -77,20 +101,22 @@ def robust_mf_image(infile: str, library: str, outfile: str,
 
     Returns a dict with output paths and the column-stats arrays.
 
+    ``bgmodes``: background modes per column (1: unimodal; more: PCA to
+    ``pcadim`` dims, k-means, one fit per mode, see
+    :func:`.matched_filter.matched_filter_columns_multimodal` for
+    ``reject`` and ``regfull``).
     ``dtype``: float32 (default) or float64 compute precision.
     ``cond_thresh``: in the float32 path, columns whose whitened
     covariance has ``lam_min/lam_max`` below this (the near-singular
     regime where f32 cannot track f64) are recomputed in float64 on the
-    same device and overwritten. 0 disables.
+    same device and overwritten. 0 disables. With ``bgmodes > 1`` the
+    gate is per (column, mode): a column with any ill-conditioned mode in
+    use is recomputed through the whole multimodal path in float64.
     ``preloaded``: optional ``(active_slab, rgb_slab)`` already in RAM —
     ``active_slab`` (lines, samples, active_bands) and ``rgb_slab``
     (lines, samples, 3); skips every disk read of the cube.
     ``device``: "cuda" (default; raises without a card) or "cpu".
     """
-    if bgmodes != 1:
-        raise NotImplementedError(
-            "multimodal CMF (bgmodes > 1) is not ported yet "
-            "(ROADMAP: modules to port, item 10)")
     dev = resolve_device(device)
     dt = _TORCH_DTYPE[np.dtype(dtype)]
     img = envi_io.open_envi(infile)
@@ -121,7 +147,12 @@ def robust_mf_image(infile: str, library: str, outfile: str,
     outmeta["interleave"] = "bip"
     for kwarg in ["smoothing factors", "wavelength", "wavelength units", "fwhm"]:
         outmeta.pop(kwarg, None)
-    parms = f"modelname={model}, bgmodel=unimodal"
+    bgmodel = "unimodal" if bgmodes == 1 else "multimodal"
+    parms = f"modelname={model}, bgmodel={bgmodel}"
+    if bgmodes > 1:
+        parms += f", bgmodes={bgmodes}, pcadim={pcadim}, reject={reject}"
+        if model == "looshrinkage":
+            parms += f", regfull={regfull}"
     if model == "looshrinkage":
         parms += ", aminexp=-10.0, amaxexp=0.0, astep=0.05"
     parms += f", reflectance={reflectance}, active_bands={list(active)}"
@@ -164,6 +195,7 @@ def robust_mf_image(infile: str, library: str, outfile: str,
     abscf_t = torch.as_tensor(abscf, dtype=dt, device=dev)
 
     nblocks = -(-ncols // col_chunk)
+    f64_columns = 0
     for bi in range(nblocks):
         c0 = bi * col_chunk
         c1 = min(ncols, c0 + col_chunk)
@@ -173,29 +205,64 @@ def robust_mf_image(infile: str, library: str, outfile: str,
             xj = torch.cat([xj, xj.new_zeros((nrows, col_chunk - width,
                                               xj.shape[2]))], dim=1)
         mj = mfmod.valid_mask(xj).to(dt)
-        res = mfmod.matched_filter_columns(xj, mj, abscf_t, alphas_t,
-                                           model=model,
-                                           reflectance=reflectance)
-        mf = res.mf.cpu().numpy() * ppm
-        valid = mj.cpu().numpy() > 0
-        alpha_index = res.alpha_index.cpu().numpy().copy()
-        if cond_thresh and dt == torch.float32:
-            cond = res.cond[:width].cpu().numpy()
-            nvalid = res.n[:width].cpu().numpy()
-            # ~(cond >= thresh), NOT (cond < thresh): a NaN cond (f32 eigh
-            # on a rank-deficient covariance) must also be recomputed
-            bad = np.nonzero(~(cond >= cond_thresh) & (nvalid >= 2))[0]
-            if bad.size:
-                if verbose:
-                    print(f"[INFO] columns {c0 + bad} cond<{cond_thresh:g}: "
-                          f"f64 recompute on {dev}")
-                mf64, a64 = _f64_columns(xj, bad, abscf, alphas, model,
-                                         reflectance)
-                mf[:, bad] = mf64 * ppm
-                alpha_index[bad] = a64
-        if save_bgmeta:
-            bg_mm[:, c0:c1, 0] = 1
-            bg_mm[:, c0:c1, 1] = alpha_index[None, :width]
+        if bgmodes > 1:
+            res = mfmod.matched_filter_columns_multimodal(
+                xj, mj, abscf_t, alphas_t, bgmodes=bgmodes, pcadim=pcadim,
+                reject=reject, regfull=regfull, model=model,
+                reflectance=reflectance)
+            mf = res.mf.cpu().numpy() * ppm
+            valid = res.valid.cpu().numpy()
+            labels = res.labels.cpu().numpy()
+            alpha_pix = res.alpha_pix.cpu().numpy()
+            if cond_thresh and dt == torch.float32:
+                cond = res.cond[:width].cpu().numpy()           # (w, K)
+                cnts = res.counts[:width].cpu().numpy()
+                rejm = res.rejected[:width].cpu().numpy()
+                # ~(cond >= thresh): a NaN cond must also be recomputed
+                flagged = ~(cond >= cond_thresh) & (cnts >= 2) & ~rejm
+                bad = np.nonzero(flagged.any(axis=1))[0]
+                if bad.size:
+                    if verbose:
+                        print(f"[INFO] columns {c0 + bad} have modes with "
+                              f"cond<{cond_thresh:g}: f64 multimodal "
+                              f"recompute on {dev}")
+                    mf64, v64, l64, a64 = _f64_columns_multimodal(
+                        xj, bad, abscf, alphas, model, reflectance, bgmodes,
+                        pcadim, reject, regfull)
+                    mf[:, bad] = mf64 * ppm
+                    valid[:, bad] = v64
+                    labels[:, bad] = l64
+                    alpha_pix[:, bad] = a64
+                f64_columns += int(bad.size)
+            if save_bgmeta:
+                bg_mm[:, c0:c1, 0] = labels[:, :width]
+                bg_mm[:, c0:c1, 1] = alpha_pix[:, :width]
+        else:
+            res = mfmod.matched_filter_columns(xj, mj, abscf_t, alphas_t,
+                                               model=model,
+                                               reflectance=reflectance)
+            mf = res.mf.cpu().numpy() * ppm
+            valid = mj.cpu().numpy() > 0
+            alpha_index = res.alpha_index.cpu().numpy().copy()
+            if cond_thresh and dt == torch.float32:
+                cond = res.cond[:width].cpu().numpy()
+                nvalid = res.n[:width].cpu().numpy()
+                # ~(cond >= thresh), NOT (cond < thresh): a NaN cond (f32
+                # eigh on a rank-deficient covariance) must also be
+                # recomputed
+                bad = np.nonzero(~(cond >= cond_thresh) & (nvalid >= 2))[0]
+                if bad.size:
+                    if verbose:
+                        print(f"[INFO] columns {c0 + bad} cond<{cond_thresh:g}: "
+                              f"f64 recompute on {dev}")
+                    mf64, a64 = _f64_columns(xj, bad, abscf, alphas, model,
+                                             reflectance)
+                    mf[:, bad] = mf64 * ppm
+                    alpha_index[bad] = a64
+                f64_columns += int(bad.size)
+            if save_bgmeta:
+                bg_mm[:, c0:c1, 0] = 1
+                bg_mm[:, c0:c1, 1] = alpha_index[None, :width]
 
         mf = mf[:, :width]
         valid = valid[:, :width]
@@ -229,4 +296,5 @@ def robust_mf_image(infile: str, library: str, outfile: str,
     coldf.to_csv(colcsv, index_label="column")
 
     return dict(outfile=outfile, colcsv=colcsv,
-                colnum=colnum, colavg=colavg, colstd=colstd)
+                colnum=colnum, colavg=colavg, colstd=colstd,
+                f64_columns=f64_columns)

@@ -6,8 +6,13 @@ leans on (reference: srcfinder_util.py:1041-1073 ``openimg``/``openmm``/
 cmf/robust_mf.py:206-208, :261-263).
 
 Supports BIL/BIP/BSQ interleaves, all standard ENVI data types, header
-round-tripping and creation of writable output images. Every read goes
-through a numpy memmap of the raw file; the caller moves what it reads
+round-tripping and creation of writable output images. The streaming
+reads (line blocks, band windows, band subsets, whole cubes, one band)
+go through :class:`.directio.DirectFile`, as in the JAX package: one
+contiguous extent per line, or per run of adjacent bands per line, read
+with buffered ``pread`` (O_DIRECT with ``SRCFINDER_DIRECT_IO=1``). What it does not cover (header offsets that are not a
+multiple of the sample size, band subsets of BIP and BSQ sources) reads
+through a numpy memmap of the raw file. The caller moves what it reads
 to the device.
 """
 
@@ -204,10 +209,45 @@ class EnviImage:
             return mm.transpose(_to_bip_axes(self.interleave))
         raise ValueError(f"unsupported interleave request: {interleave}")
 
+    def _direct(self):
+        if getattr(self, "_df", None) is None:
+            from .directio import DirectFile
+            self._df = DirectFile(self.img_file)
+        return self._df
+
+    def read_lines(self, r0: int, r1: int) -> np.ndarray:
+        """Line block [r0, r1) as a (rows, samples, bands) array (a
+        transpose view for BIL sources; materialize as needed). The
+        streaming masks read (reference: masks_sds.py:289-296)."""
+        item = self.dtype.itemsize
+        if (self.interleave in ("bil", "bip") and self.offset % item == 0
+                and 0 <= r0 <= r1 <= self.nrows):
+            lb = self.ncols * self.nbands * item
+            buf = self._direct().read_range(self.offset + r0 * lb, (r1 - r0) * lb)
+            arr = buf.view(self.dtype)
+            if self.interleave == "bil":
+                return arr.reshape(r1 - r0, self.nbands, self.ncols).transpose(0, 2, 1)
+            return arr.reshape(r1 - r0, self.ncols, self.nbands)
+        return np.asarray(self.open_memmap(interleave="bip")[r0:r1])
+
     def read_band_window(self, b0: int, b1: int) -> np.ndarray:
         """Bands [b0, b1) of every line as (lines, b1-b0, samples) — the
         CMF's active-window read (reference: robust_mf.py:297-298 reads
-        ``img_mm[:, active[0]-1:active[1], col]`` of a BIL cube)."""
+        ``img_mm[:, active[0]-1:active[1], col]`` of a BIL cube). One
+        contiguous extent per line for BIL; one extent in all for BSQ."""
+        item = self.dtype.itemsize
+        nb = b1 - b0
+        if self.interleave == "bil" and self.offset % item == 0:
+            lb = self.nbands * self.ncols * item
+            ext = nb * self.ncols * item
+            offs = [self.offset + li * lb + b0 * self.ncols * item
+                    for li in range(self.nrows)]
+            buf = self._direct().read_strided(offs, ext)
+            return buf.view(self.dtype).reshape(self.nrows, nb, self.ncols)
+        if self.interleave == "bsq" and self.offset % item == 0:
+            plane = self.nrows * self.ncols * item
+            buf = self._direct().read_range(self.offset + b0 * plane, nb * plane)
+            return buf.view(self.dtype).reshape(nb, self.nrows, self.ncols).transpose(1, 0, 2)
         mm = self.open_memmap(interleave="source")
         if self.interleave == "bil":
             return np.ascontiguousarray(mm[:, b0:b1, :])
@@ -217,22 +257,55 @@ class EnviImage:
 
     def read_lines_bands(self, r0: int, r1: int, bands) -> np.ndarray:
         """Band subset of line block [r0, r1) as (rows, samples,
-        len(bands))."""
+        len(bands)) (a transpose view for BIL sources), in the list's
+        order. For BIL only the requested bands' bytes are read: bands
+        adjacent in the list and in the file merge into runs, one extent
+        per run per line."""
+        bands = [int(b) for b in bands]
+        item = self.dtype.itemsize
+        nbsel = len(bands)
+        if (self.interleave == "bil" and self.offset % item == 0
+                and nbsel and 0 <= r0 <= r1 <= self.nrows):
+            rows = r1 - r0
+            out = np.empty((rows, nbsel, self.ncols), self.dtype)
+            # each line's runs land in place: (rows, bands x samples) bytes
+            dest = out.view(np.uint8).reshape(rows, nbsel * self.ncols * item)
+            band_bytes = self.ncols * item
+            lb = self.nbands * band_bytes
+            df = self._direct()
+            i = 0
+            while i < nbsel:           # coalesce into contiguous runs
+                j = i + 1
+                while j < nbsel and bands[j] == bands[j - 1] + 1:
+                    j += 1
+                offs = [self.offset + li * lb + bands[i] * band_bytes
+                        for li in range(r0, r1)]
+                df.read_strided(offs, (j - i) * band_bytes,
+                                out=dest[:, i * band_bytes:j * band_bytes])
+                i = j
+            return out.transpose(0, 2, 1)
         bip = self.open_memmap(interleave="bip")
-        return np.asarray(bip[r0:r1][:, :, [int(b) for b in bands]])
+        return np.asarray(bip[r0:r1][:, :, bands])
 
     def load(self) -> np.ndarray:
-        """Whole cube as (lines, samples, bands)."""
-        return np.ascontiguousarray(self.open_memmap(interleave="bip"))
+        """Whole cube as (lines, samples, bands), through the line reader
+        where it applies."""
+        try:
+            return np.ascontiguousarray(self.read_lines(0, self.nrows))
+        except OSError:
+            return np.asarray(self.open_memmap(interleave="bip"))
 
     def read_band(self, b: int) -> np.ndarray:
         """One band as (lines, samples) — the detect stage's CMF-band read
-        (reference: cnn_pred_pipeline.py loads band 4 of the CMF)."""
+        (reference: cnn_pred_pipeline.py loads band 4 of the CMF). BIL and
+        BSQ read just that band's bytes; BIP reads lines."""
         if b < 0:
             b += self.nbands
         if not 0 <= b < self.nbands:
             raise IndexError(f"band {b} of {self.nbands}")
-        return np.ascontiguousarray(self.open_memmap(interleave="bip")[..., b])
+        if self.interleave in ("bil", "bsq"):
+            return np.ascontiguousarray(self.read_band_window(b, b + 1)[:, 0, :])
+        return np.ascontiguousarray(self.read_lines(0, self.nrows)[..., b])
 
 
 def open_envi(file: str, image: str = None) -> EnviImage:

@@ -80,14 +80,18 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
                    model_name: str = "multi_64", prob_thr: float = 0.5,
                    ppmm_thr: float = 250.0, method: str = "auto",
                    do_ime: bool = False, do_masks: bool = False,
-                   dtype="float32", fcn_dtype="float32",
+                   dtype="float32", fcn_dtype="float32", bgmodes: int = 1,
                    col_chunk: int = 256, progress=print, device="cuda"):
     """Run all stages for one flightline; returns a dict of products
     (paths) plus ``timers`` (seconds per stage; the fused stage's two
-    phases also as "read+masks" and "cmf phase").
+    phases also as "read+masks" and "cmf phase") and, after a fused
+    stage, "read+masks parts" (seconds of the disk reads, the slab taps,
+    the pixel tests, the host growth and the block waits; the reads and
+    taps run in a reader thread beside the rest).
 
     ``dtype``: the CMF's precision; ``fcn_dtype``: the FCN trunk's
-    ("float32" or "bfloat16"). ``device``: "cuda" (default; raises
+    ("float32" or "bfloat16"). ``bgmodes``: the CMF's background modes
+    per column (1: unimodal). ``device``: "cuda" (default; raises
     without a card) or "cpu".
     """
     dev = resolve_device(device)
@@ -133,13 +137,15 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
                 rgb[r0:r1] = blk[:, :, [pos[b] for b in rgb_bands]]
 
             t0 = time.time()
+            products["read+masks parts"] = parts = {}
             masks_for_flightline(radiance, outdir, out_name=mskname + ".part",
                                  device=dev, tap=tap,
-                                 tap_bands=list(range(a0, a1)) + list(rgb_bands))
+                                 tap_bands=list(range(a0, a1)) + list(rgb_bands),
+                                 timers=parts)
             timers["read+masks"] = time.time() - t0
             progress(f"[PHASE] read+masks done in {timers['read+masks']:.1f}s")
             t0 = time.time()
-            robust_mf_image(radiance, library, cmff + ".part",
+            robust_mf_image(radiance, library, cmff + ".part", bgmodes=bgmodes,
                             dtype=np.dtype(dtype).type, col_chunk=col_chunk,
                             rgb_bands=rgb_bands, preloaded=(slab, rgb), device=dev)
             timers["cmf phase"] = time.time() - t0
@@ -148,7 +154,7 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
     else:
         if need_cmf:
             with _Stage("cmf", timers, progress):
-                robust_mf_image(radiance, library, cmff + ".part",
+                robust_mf_image(radiance, library, cmff + ".part", bgmodes=bgmodes,
                                 dtype=np.dtype(dtype).type, col_chunk=col_chunk,
                                 device=dev)
                 _finalize((cmff + ".part", cmff))
@@ -229,6 +235,8 @@ def build_parser():
                    help="FCN weights (.npz in the Flax layout, or .pt)")
     p.add_argument("--outdir", "-o", default=".")
     p.add_argument("--model", default="multi_64")
+    p.add_argument("--bgmodes", "-k", type=int, default=1,
+                   help="CMF background modes per column (k-means)")
     p.add_argument("--prob_thr", type=float, default=0.5)
     p.add_argument("--ppmm_thr", type=float, default=250.0)
     p.add_argument("--method", default="auto",
@@ -258,6 +266,7 @@ def main(argv=None):
         outdir=args.outdir, model_name=args.model, prob_thr=args.prob_thr,
         ppmm_thr=args.ppmm_thr, method=args.method, do_ime=args.ime,
         do_masks=args.masks, dtype=args.dtype, fcn_dtype=args.fcn_dtype,
+        bgmodes=args.bgmodes,
         col_chunk=args.col_chunk, device=args.device)
     for k, v in products.items():
         print(f"{k}: {v}")

@@ -11,6 +11,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -106,7 +107,7 @@ def masks_for_flightline(rdn_path: str, outpath: str, *,
                          dark_threshold=0.104, cldbfr="150m",
                          maskgrowradius="150m", mingrowarea=5,
                          block_step=500, vis_thr=9.0, device="cuda",
-                         out_name=None, tap=None, tap_bands=None):
+                         out_name=None, tap=None, tap_bands=None, timers=None):
     """The 4-band QC mask of one radiance flightline, written next to
     ``outpath`` (an existing product is overwritten); returns the output
     image's basename.
@@ -117,7 +118,11 @@ def masks_for_flightline(rdn_path: str, outpath: str, *,
     float32 holding the union of the masks' bands, band 0 (nodata) and
     ``tap_bands``; ``pos`` maps a band index to its position in
     ``block``'s last axis. Only those bands are read from disk.
-    ``device``: "cuda" (default; raises without a card) or "cpu"."""
+    ``device``: "cuda" (default; raises without a card) or "cpu".
+    ``timers``: optional dict that receives the seconds of the phase's
+    parts: the disk reads and the taps (in the reader thread), the pixel
+    tests, the host growth and the waits for a block (see
+    :func:`.sds.masks_for_cube`)."""
     rdn = envi_io.open_envi(rdn_path)
     params, grow_px, cld_px, wavelengths = flightline_mask_config(
         rdn, rdn_path, saturationthreshold=saturationthreshold,
@@ -128,6 +133,7 @@ def masks_for_flightline(rdn_path: str, outpath: str, *,
     # rewrite the same rows
     nod = np.zeros((rdn.nrows, rdn.ncols), bool)
     state = {}
+    clock = {"read": 0.0, "tap": 0.0}
 
     def read_block_bands(r0, r1, bands):
         if "req" not in state:
@@ -136,9 +142,13 @@ def masks_for_flightline(rdn_path: str, outpath: str, *,
             state["pos"] = {b: i for i, b in enumerate(state["req"])}
             state["sel"] = [state["pos"][int(b)] for b in bands]
         pos = state["pos"]
+        t0 = time.perf_counter()
         blk = np.asarray(rdn.read_lines_bands(r0, r1, state["req"]), np.float32)
+        t1 = time.perf_counter()
+        clock["read"] += t1 - t0
         if tap is not None:
             tap(r0, r1, blk, pos)
+            clock["tap"] += time.perf_counter() - t1
         nod[r0:r1] = blk[:, :, pos[0]] == -9999
         return blk[:, :, state["sel"]]
 
@@ -146,7 +156,9 @@ def masks_for_flightline(rdn_path: str, outpath: str, *,
         read_block_bands=read_block_bands, nrows=rdn.nrows, ncols=rdn.ncols,
         wavelengths=wavelengths, params=params, maskgrowradius_px=grow_px,
         mingrowarea=mingrowarea, cldbfr_px=cld_px, block_step=block_step,
-        nodata_row0=lambda: nod, device=device)
+        nodata_row0=lambda: nod, device=device, timers=timers)
+    if timers is not None:
+        timers.update(clock)
 
     meta = {
         "description": "Flare and cloud mask (srcfinder_torch).",

@@ -317,6 +317,5 @@ def test_robust_mf_image_raises_without_card(tmp_path, rng):
     infile, libf, x, lib = _write_flightline(tmp_path, rng, L=8, C=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpl.robust_mf_image(infile, libf, str(tmp_path / "o"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpl.robust_mf_image(infile, libf, str(tmp_path / "o"), bgmodes=2,
-                            device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpl.robust_mf_image(infile, libf, str(tmp_path / "o"), bgmodes=2)

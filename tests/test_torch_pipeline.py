@@ -188,7 +188,11 @@ def test_pipeline_cli_main_and_device_guard(flightline, run32, capsys):
 def test_pipeline_imports_no_jax():
     code = ("import sys, srcfinder_torch.flow.pipeline_cli, "
             "srcfinder_torch.cmf.cli, srcfinder_torch.masks.cli, "
-            "srcfinder_torch.detect.fcn_cli, srcfinder_torch.core.prefetch; "
+            "srcfinder_torch.detect.fcn_cli, srcfinder_torch.core.prefetch, "
+            "srcfinder_torch.cmf.kmeans, srcfinder_torch.cmf.matched_filter, "
+            "srcfinder_torch.core.directio, srcfinder_torch.core.envi, "
+            "srcfinder_torch.triage.profile, srcfinder_torch.triage.cli; "
+            "assert 'flax' not in sys.modules, 'flax'; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert 'srcfinder_tpu' not in sys.modules, 'srcfinder_tpu'")
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
