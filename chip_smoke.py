@@ -59,6 +59,23 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    the full column's count, in f32 and f64, against their plain versions
    (TOL, the argmin check, repeats bit-identical). Prints seconds per
    stage and peak device memory; the scene is deleted after.
+4c. The emission stage ("winds" line): the main path's radiance in a
+   watched directory, seeded f64 .npz wind grids at the real cell counts
+   (HRRR 1059 x 1799 with 10 m and 80 m winds, RTMA 1377 x 2145, 3 files
+   each, regular lat/lon around the scene; ~0.7 GB, deleted after), and
+   srcfinder_torch.flow.pipeline_cli.main with --watch --once --ime
+   --winds --wind-ext .npz in this process: watcher, job queue, CMF (K1
+   and K2 counted from zero), FCN with the trained-like weights of phase 5,
+   salience, IME, the IME merge and msf-flow. The salience threshold is
+   the CLI's 0.5 where that gives WIND_CANDIDATES candidates with one in
+   the plume, else the highest quantile of the saliency that does. Every
+   selection of nearest cells equals a host f64 oracle's (numpy spherical
+   cosines, stable argsort; ties within WIND_TIE_KM compared as sets),
+   every wind mean and std the oracle's over the same files (rtol 1e-12),
+   every emission rate AvgIMEdivFetch20 x mean x 3600 (rtol 1e-12). Prints
+   candidates, grid reads, stage seconds, the device ms of one nearest-
+   cell search at each grid size (CUDA events, median of 10) beside the
+   whole call's and the oracle's host ms, and peak device memory.
 5. The exact dense CNN's trunk kernels (fused_stage12, trunk_s23,
    trunk_s3, trunk_s45) against their plain versions, on windows of 256 x
    256 gathered from a 16-line strip cut through the plume of the scene's
@@ -146,6 +163,7 @@ srcfinder_torch, for a same-call A/B of two commits.
 
 from __future__ import annotations
 
+import csv
 import json
 import math
 import os
@@ -221,6 +239,21 @@ DILATED_SLOWDOWN = 3.0
 MODE_OFFSET = 8.0
 LABEL_AGREEMENT = 0.99
 MM_F32_TOL = 5e-3
+# the emission stage (phase 4c): wind grids at the real CONUS cell counts
+# (HRRR 1059 x 1799 at ~3 km with 10 m and 80 m winds, RTMA 1377 x 2145 at
+# ~2.5 km), regular in lat/lon and centred on the scene (UTM 11N 272247 E,
+# 3992010 N); their file times bracket the scene id's 2020-09-24 21:11:02
+WIND_CENTER = (36.04, -119.5)
+WIND_GRIDS = {"hrrr": ((1059, 1799), (0.027, 0.0334),
+                       [f"hrrr.20200924{h}.wrfsfcf00.npz" for h in (20, 21, 22)]),
+              "rtma": ((1377, 2145), (0.0225, 0.0278),
+                       [f"rtma2p5_ru.20200924{hm}z.2dvaranl_ndfd.npz"
+                        for hm in ("2100", "2115", "2130")])}
+WIND_K = 10                        # nearest cells per file (compute_wind_stats)
+# candidates of the winds run: at least 10, and few enough that its 9 grid
+# reads per candidate keep the phase near two minutes
+WIND_CANDIDATES = (10, 25)
+WIND_TIE_KM = 1e-9                 # oracle distances this close are a tie
 # the real-length flightline (phase 8): 12,000 lines, on the 32-line grid
 LONG_SCENE = (12000, 598, 425)
 LONG_PLUME = (slice(6000, 6040), slice(290, 310))
@@ -844,6 +877,266 @@ def phase_main_path(workdir):
     print(json.dumps({"main_path": summary}))
     profile_stages(rdn, libf, wf, prods["cmf"], workdir)
     return launches, prods["cmf"], rdn, libf
+
+
+def write_wind_grids(winddir):
+    """Seeded f64 npz wind grids (WIND_GRIDS) under ``winddir``/hrrr/20200924
+    and rtma/20200924, in the layout read_wind_grid reads: lat, lon, u, v,
+    gust (and u_80, v_80 for HRRR's 80 m) and valid_date. Returns
+    {kind: [paths]}."""
+    import numpy as np
+    rng = np.random.default_rng(20200924)
+    paths = {}
+    for kind, ((ny, nx), (dlat, dlon), names) in WIND_GRIDS.items():
+        day = os.path.join(winddir, kind, "20200924")
+        os.makedirs(day)
+        lat = WIND_CENTER[0] + (np.arange(ny) - ny // 2)[:, None] * dlat * np.ones((1, nx))
+        lon = WIND_CENTER[1] + (np.arange(nx) - nx // 2)[None, :] * dlon * np.ones((ny, 1))
+        paths[kind] = []
+        for name in names:
+            stamp = re.search(r"\.(\d{10,12})z?\.", name).group(1).ljust(12, "0")
+            fields = {f: rng.normal(mu, 1.5, (ny, nx)) for f, mu in
+                      (("u", 3.0), ("v", 4.0), ("gust", 7.0))
+                      + ((("u_80", 5.0), ("v_80", 6.0)) if kind == "hrrr" else ())}
+            paths[kind].append(os.path.join(day, name))
+            np.savez(paths[kind][-1], lat=lat, lon=lon, valid_date=(
+                f"{stamp[:4]}-{stamp[4:6]}-{stamp[6:8]}T{stamp[8:10]}:{stamp[10:12]}:00"),
+                **fields)
+    return paths
+
+
+def oracle_nearest(lon0, lat0, lon, lat):
+    """The host f64 oracle: spherical-cosines distances (km) from the plume
+    to every cell of the F-order raveled grid, numpy in float64 (the
+    reference's windspeed.py:142-160), and the stable argsort's order."""
+    import numpy as np
+    x = np.radians(np.array([lon0, lat0], np.float64))
+    latr = np.radians(lat)
+    cosang = (np.sin(x[1]) * np.sin(latr)
+              + (np.cos(x[1]) * np.cos(latr)) * np.cos(x[0] - np.radians(lon)))
+    d = 6378.137 * np.arccos(np.clip(cosang, -1, 1))
+    return d, np.argsort(d, kind="stable")
+
+
+def wind_thresholds(sal):
+    """The winds run's salience threshold on its saliency map ``sal``: the
+    CLI's default 0.5 where WIND_CANDIDATES regions lie above it, one of
+    them reaching into the plume (so an emission rate can be formed); else
+    the highest such quantile of the map. Returns (prob_thr, source,
+    {source: (threshold, regions)} of each one tried)."""
+    import numpy as np
+    from srcfinder_torch.core.morphology import imlabel
+    valid = sal != -9999.0
+    tries = [(0.5, "cli_default")] + [
+        (float(np.quantile(sal[valid], q)), f"quantile_{q}")
+        for q in (0.9995, 0.999, 0.998, 0.995, 0.99, 0.98, 0.95, 0.9, 0.8, 0.7, 0.6, 0.5)]
+    seen = {}
+    for thr, source in tries:
+        n = int(imlabel(sal > thr).max())
+        seen[source] = (thr, n)
+        if WIND_CANDIDATES[0] <= n <= WIND_CANDIDATES[1] and sal[PLUME].max() > thr:
+            return thr, source, seen
+    fail(f"no salience threshold gives {WIND_CANDIDATES} candidates with one in "
+         f"the plume: {seen}")
+
+
+def phase_winds(workdir, rdn, libf, cmf_product):
+    """The emission stage from the radiance (phase 4c): the main path's
+    radiance in a watched directory, srcfinder_torch.flow.pipeline_cli.main
+    with --watch --once --winds on wind grids at the real HRRR and RTMA
+    sizes, with the trained-like weights (the seed-0 weights of the main
+    path give every pixel a probability of 0.5, one candidate). Every wind
+    statistic is held to the host f64 oracle over the same files, every
+    emission rate to AvgIMEdivFetch20 x mean x 3600."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from srcfinder_torch.core.envi import open_envi
+    from srcfinder_torch.detect.fcn_pipeline import fcn_saliency_image, load_saliency_model
+    from srcfinder_torch.flow import pipeline_cli, wind
+    from srcfinder_torch.flow.emission import get_mean_wind_key, get_std_wind_key
+    from srcfinder_torch.flow.windgrid import read_wind_grid
+    from srcfinder_torch.ops import loo, moments
+
+    # the threshold from the saliency the run will make of the same CMF
+    wf = write_cnn_weights(workdir)
+    band = np.asarray(open_envi(cmf_product).read_band(-1), np.float32)
+    sal = fcn_saliency_image(band, load_saliency_model(wf, device="cuda"),
+                             device="cuda").cpu().numpy()
+    prob_thr, thr_source, thr_tries = wind_thresholds(sal)
+    watched = os.path.join(workdir, "watched")
+    winddir = os.path.join(workdir, "winds")
+    out = os.path.join(workdir, "winds_out")
+    os.makedirs(watched)
+    for ext in ("", ".hdr"):
+        os.symlink(rdn + ext, os.path.join(watched, os.path.basename(rdn) + ext))
+    t0 = time.time()
+    grids = write_wind_grids(winddir)
+    setup_s = time.time() - t0
+    try:
+        # instrumentation: the job's products, every grid read and every
+        # nearest-cell search of the run (plume, cells, selected indices),
+        # and the host seconds of each kind
+        jobs, reads, searches = [], [], []
+        spent = {"grid_reads_s": 0.0, "searches_s": 0.0}
+        real_run, real_read, real_nearest = (pipeline_cli.run_flightline,
+                                             wind.read_wind_grid, wind.nearest_points)
+
+        def run(*a, **k):
+            jobs.append(real_run(*a, **k))
+            return jobs[-1]
+
+        def read(path, alt=10):
+            t1 = time.perf_counter()
+            reads.append((os.path.basename(path), alt))
+            grid = real_read(path, alt)
+            spent["grid_reads_s"] += time.perf_counter() - t1
+            return grid
+
+        def nearest(plume, grid, k, device="cuda"):
+            t1 = time.perf_counter()
+            d, idx = real_nearest(plume, grid, k, device=device)
+            spent["searches_s"] += time.perf_counter() - t1
+            searches.append((tuple(plume), grid.lon.size, idx))
+            return d, idx
+
+        pipeline_cli.run_flightline, wind.read_wind_grid, wind.nearest_points = (
+            run, read, nearest)
+        argv = ["--library", libf, "--weights", wf, "-o", out, "--prob_thr",
+                repr(prob_thr), "--ppmm_thr", "250", "--ime", "--winds", winddir,
+                "--wind-ext", ".npz", "--watch", watched, "--once"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        moments.KERNEL.reset()
+        loo.KERNEL.reset()
+        t0 = time.time()
+        try:
+            rc = pipeline_cli.main(argv)
+        finally:
+            pipeline_cli.run_flightline, wind.read_wind_grid, wind.nearest_points = (
+                real_run, real_read, real_nearest)
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        launches = {"masked_moments": moments.KERNEL.launches,
+                    "loo_sweep": loo.KERNEL.launches}
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0 or len(jobs) != 1:
+            fail(f"pipeline --watch --once returned {rc} after {len(jobs)} jobs")
+        for k, n in launches.items():
+            if n <= 0:
+                fail(f"kernel {k} was not launched in the winds run")
+        prods = jobs[0]
+        dets = pd.read_csv(prods["detections_csv"])
+        with open(prods["enriched_csv"]) as f:
+            enriched = list(csv.DictReader(f))
+        n = len(dets)
+        if n < WIND_CANDIDATES[0] or len(enriched) != n or sorted(
+                r["Candidate ID"] for r in enriched) != sorted(dets["Candidate ID"]):
+            fail(f"enriched list: {len(enriched)} rows for {n} candidates")
+
+        # the oracle over the same files: one read of each, one f64 search
+        # per plume and grid geometry
+        plumes = [(float(r["Plume Longitude (deg)"]), float(r["Plume Latitude (deg)"]))
+                  for r in enriched]
+        expect, ties, max_rel = {}, 0, 0.0
+        for kind, alts in (("hrrr", (10, 80)), ("rtma", (10,))):
+            files = [read_wind_grid(f, alt) for alt in alts for f in grids[kind]]
+            lon = files[0].lon.ravel(order="F")
+            lat = files[0].lat.ravel(order="F")
+            for g in files:
+                if not (np.array_equal(g.lon, files[0].lon)
+                        and np.array_equal(g.lat, files[0].lat)):
+                    fail(f"{kind} grids differ in geometry")
+            for pl in plumes:
+                d, order = oracle_nearest(pl[0], pl[1], lon, lat)
+                got = [s[2] for s in searches if s[0] == pl and s[1] == lon.size]
+                if len(got) != len(files):
+                    fail(f"{len(got)} searches of the {kind} grid for plume {pl}")
+                sel = order[:WIND_K]
+                for idx in got:
+                    if d[order[WIND_K]] - d[order[WIND_K - 1]] <= WIND_TIE_KM:
+                        # a tie at the k-th cell: the cells closer than it
+                        # must be chosen, the rest from the tied ones
+                        ties += 1
+                        tie = d[order[WIND_K - 1]]
+                        below = set(order[d[order] < tie - WIND_TIE_KM].tolist())
+                        tied = set(np.nonzero(np.abs(d - tie) <= WIND_TIE_KM)[0].tolist())
+                        if not below <= set(idx.tolist()) <= below | tied:
+                            fail(f"{kind} selection {idx} for {pl} breaks the tie rule")
+                        sel = idx
+                    elif not np.array_equal(idx, sel):
+                        fail(f"{kind} selection {idx.tolist()} for {pl} != oracle "
+                             f"{sel.tolist()}")
+                for i, alt in enumerate(alts):
+                    speeds = np.stack([np.sqrt(g.u ** 2 + g.v ** 2).ravel(order="F")[sel]
+                                       for g in files[i * 3:(i + 1) * 3]])
+                    expect[(pl, kind.upper(), alt)] = (speeds.mean(), speeds.std())
+        emissions = 0
+        for row, pl in zip(enriched, plumes):
+            for kind, alt in (("HRRR", 10), ("HRRR", 80), ("RTMA", 10)):
+                mk = get_mean_wind_key(kind, alt, WIND_K, 3)
+                sk = get_std_wind_key(kind, alt, WIND_K, 3)
+                if mk not in row or sk not in row:
+                    fail(f"enriched list lacks {mk}")
+                got = np.array([float(row[mk]), float(row[sk])])
+                ref = np.array(expect[(pl, kind, alt)])
+                rel = np.abs(got - ref) / np.abs(ref)
+                max_rel = max(max_rel, float(rel.max()))
+                if not (rel <= 1e-12).all():
+                    fail(f"{row['Candidate ID']} {kind} {alt} m wind {got} != oracle {ref}")
+            for kind in ("HRRR", "RTMA"):
+                er = row[f"Emission Rate (kg/hr) [{kind} 10 m]"]
+                if er == "NA":
+                    continue
+                want = (float(row["AvgIMEdivFetch20 (kg/m)"])
+                        * float(row[get_mean_wind_key(kind, 10, WIND_K, 3)]) * 3600)
+                if not abs(float(er) - want) <= 1e-12 * abs(want):
+                    fail(f"{row['Candidate ID']} {kind} emission {er} != {want}")
+                emissions += 1
+        if not emissions:
+            fail("no candidate got an emission rate")
+
+        # one nearest-cell search at each grid size: the device's, the whole
+        # call's (F-order ravel and copy to the card included) and the oracle's
+        timing = {}
+        for kind, paths in grids.items():
+            g = read_wind_grid(paths[0])
+            lon = g.lon.ravel(order="F")
+            lat = g.lat.ravel(order="F")
+            tl = torch.as_tensor(lon, device="cuda")
+            tt = torch.as_tensor(lat, device="cuda")
+            dev_ms, call_ms, oracle_ms = [], [], []
+            for _ in range(10):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                wind._nearest_k(plumes[0][0], plumes[0][1], tl, tt, WIND_K)
+                end.record()
+                torch.cuda.synchronize()
+                dev_ms.append(start.elapsed_time(end))
+                t1 = time.perf_counter()
+                wind.nearest_points(plumes[0], g, WIND_K, device="cuda")
+                call_ms.append((time.perf_counter() - t1) * 1e3)
+            for _ in range(5):
+                t1 = time.perf_counter()
+                oracle_nearest(plumes[0][0], plumes[0][1], lon, lat)[1][:WIND_K]
+                oracle_ms.append((time.perf_counter() - t1) * 1e3)
+            timing[kind] = dict(cells=int(lon.size),
+                                device_ms_median=float(np.median(dev_ms)),
+                                call_ms_median=float(np.median(call_ms)),
+                                oracle_host_ms_median=float(np.median(oracle_ms)),
+                                oracle_reps=len(oracle_ms))
+    finally:
+        shutil.rmtree(winddir, ignore_errors=True)
+    summary = dict(prob_thr=prob_thr, ppmm_thr=250.0, threshold_source=thr_source,
+                   threshold_tries=thr_tries, n_candidates=n,
+                   grid_reads=len(reads), grid_reads_per_candidate=len(reads) / n,
+                   searches=len(searches), emission_rates=emissions,
+                   wind_max_rel_err=max_rel, ties=ties, setup_s=setup_s, run_s=run_s,
+                   stage_s=prods["timers"], msf_flow_parts_s=spent, nearest_points=timing,
+                   peak_mem_bytes=peak, launches=launches)
+    print(json.dumps({"winds": summary}))
+    return launches
 
 
 def multimodal_chunk_inputs(x_active, dtype):
@@ -1987,6 +2280,7 @@ def main():
     try:
         flightline, cmf_product, rdn, libf = phase_main_path(workdir)
         launches = {k: ("run_flightline", n) for k, n in flightline.items()}
+        winds_launches = phase_winds(workdir, rdn, libf, cmf_product)
         mm_launches, mm_checks = phase_multimodal(workdir, libf, write_weights(workdir))
         checks.update(mm_checks)
         strip = write_strip(workdir, cmf_product)
@@ -2049,6 +2343,10 @@ def main():
                 # the launches of the multimodal run (phase 4b), from zero
                 entry[c].update(launches=mm_launches[kname],
                                 launches_in="run_flightline bgmodes=2")
+        if kname in winds_launches:
+            # the launches of the winds run (phase 4c), from zero
+            entry["winds"] = dict(launches=winds_launches[kname],
+                                  launches_in="pipeline_cli --watch --once --winds")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,8 +4,9 @@ Reference (salience_predictions.py): threshold the saliency, label
 connected components, compute per-region salience and CMF statistics,
 georeference the CMF maximum, and emit the canonical plume-list
 spreadsheet columns ("Candidate ID", "Line name", "Plume Latitude (deg)",
-...). Port of the JAX package's ``detect/salience.py`` without the
-per-candidate quicklook PDFs.
+...) plus per-candidate quicklook PDFs. Port of the JAX package's
+``detect/salience.py`` (host numpy/scipy, as there); matplotlib is
+imported only when quicklooks are drawn.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from ..core.geo import sl2latlon
 from ..core.morphology import findobj, imlabel
 from ..core.stats import extrema, mad
 
-__all__ = ["salience2detections", "save_detections", "DETECTION_COLUMNS"]
+__all__ = ["rdn2rgb_range", "salience2detections", "save_detections",
+           "DETECTION_COLUMNS"]
 
 OUTHDR = (["detid", "lid", "detbbminr", "detbbmaxr", "detbbminc", "detbbmaxc"]
           + ["salmax", "salmin", "salmed", "salmad", "salmaxrow", "salmaxcol"]
@@ -38,7 +40,22 @@ DETECTION_COLUMNS = [
 ]
 
 
-def salience2detections(salimg, cmfimg, salthr, cmfthr, cmflid, cmfmap):
+def rdn2rgb_range(rgb, mask, p=0.99):
+    """Common display range across RGB bands (reference:
+    salience_predictions.py:14-23)."""
+    rgbpix = rgb[~mask]
+    rgbmin = rgbmax = None
+    for bi in range(rgbpix.shape[-1]):
+        bmin, bmax = extrema(rgbpix[:, bi], p=p)
+        if bi != 0:
+            rgbmin, rgbmax = max(bmin, rgbmin), min(bmax, rgbmax)
+        else:
+            rgbmin, rgbmax = bmin, bmax
+    return rgbmin, rgbmax
+
+
+def salience2detections(salimg, cmfimg, salthr, cmfthr, cmflid, cmfmap,
+                        outdir=None, quicklooks=False):
     """Connected salience regions -> per-candidate stats dataframe
     (reference: salience_predictions.py:25-150).
 
@@ -60,6 +77,9 @@ def salience2detections(salimg, cmfimg, salthr, cmfthr, cmflid, cmfmap):
     salmask = salpos > salthr
     salreg = imlabel(salmask)
     salobj = findobj(salreg)
+
+    if quicklooks and outdir and not os.path.exists(outdir):
+        os.makedirs(outdir)
 
     rows = []
     for ri, robj in enumerate(salobj):
@@ -104,7 +124,41 @@ def salience2detections(salimg, cmfimg, salthr, cmfthr, cmflid, cmfmap):
                      ppmx, ppmn, pmed, pmad, pmi, pmj, plli, pllj,
                      cpmx, cpmn, cmed, cmad, cmi, cmj, clli, cllj])
 
+        if quicklooks and outdir:
+            _quicklook(outdir, detid, pimg, cimg, cmfrgb[robj], nodata[robj],
+                       salthr, cmfthr, ppmx, imin, jmin, cmi, cmj)
+
     return pd.DataFrame.from_records(rows, columns=OUTHDR)
+
+
+def _quicklook(outdir, detid, pimg, cimg, rgb, nodata, salthr, cmfthr,
+               ppmx, imin, jmin, cmi, cmj):
+    """Per-candidate salience/CMF/RGB triptych PDF
+    (reference: salience_predictions.py:120-144)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    rgbmin, rgbmax = rdn2rgb_range(rgb.reshape(-1, 3)[None] if rgb.ndim == 2
+                                   else rgb, nodata)
+    pimg = pimg.copy()
+    cimg = cimg.copy()
+    pimg[pimg < salthr] = np.nan
+    cimg[cimg < cmfthr] = np.nan
+    fig, ax = plt.subplots(1, 3, sharex=True, sharey=True, figsize=(9, 3.5))
+    ax[0].imshow(pimg, vmin=salthr, vmax=1.0, cmap="YlOrRd")
+    ax[0].set_title("Salience $\\in$ [%.1f,%.1f]%%" % (100 * salthr, 100 * ppmx))
+    ax[1].imshow(cimg, vmin=cmfthr, vmax=1500, cmap="YlOrRd")
+    ax[1].set_title("CMF $\\in$ [250,1500] ppmm")
+    rgbn = np.clip((rgb - rgbmin) / max(rgbmax - rgbmin, 1e-9), 0, 1)
+    ax[2].imshow(rgbn)
+    ax[2].set_title("RGBQL")
+    for axi in ax:
+        axi.scatter([cmj - jmin], [cmi - imin], 50,
+                    edgecolor=(0.75,) * 4, facecolor=(0.5, 0.5, 0.5, 0.5))
+        axi.set_xlabel("sample index")
+    ax[0].set_ylabel("line index")
+    fig.savefig(os.path.join(outdir, detid + ".pdf"))
+    plt.close(fig)
 
 
 def save_detections(outf, df, sheet="Plume_List"):

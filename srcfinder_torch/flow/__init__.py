@@ -1,1 +1,3 @@
-"""Flightline workflow: the one-command pipeline and the IME stage."""
+"""Flightline workflow: the one-command pipeline, the IME stage, and the
+emission stage (wind grids, nearest-cell wind statistics, emission rates,
+msf-flow)."""

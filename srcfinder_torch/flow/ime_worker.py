@@ -21,18 +21,25 @@ the reference's column names denotes that distance; the nearest
 available distance is used when 20 m is not in MERGEDISTS).
 
 Port of the JAX package's ``flow/ime_worker.py`` (host numpy, as there).
+
+    python -m srcfinder_torch.flow.ime_worker CMF [-o OUT.csv] \
+        [--ppmmthr 1500] [--fetchmax 150] [--mergedists "10 20 50"] [--minarea 9]
 """
 
 from __future__ import annotations
+
+import argparse
+import sys
 
 import numpy as np
 import pandas as pd
 
 from ..core.morphology import imlabel, mergelabels, remove_small_objects
 from ..core.physics import ime
-from ..core.geo import sl2latlon
+from ..core.geo import gcdist, sl2latlon
 
-__all__ = ["detection_ime_stats", "compute_ime_for_cmf", "IME_JOB_PARAMS"]
+__all__ = ["detection_ime_stats", "compute_ime_for_cmf",
+           "merge_ime_into_plumelist", "IME_JOB_PARAMS", "main"]
 
 #: documented Batch parameters (reference: deployment/compute-ime/invoke-ime)
 IME_JOB_PARAMS = dict(PPMMTHR=1500.0, FETCHMAX=150.0,
@@ -127,3 +134,91 @@ def compute_ime_for_cmf(cmf_path, out_csv=None, **params):
         summary = {"AvgIMEdivFetch20 (kg/m)": np.nan,
                    "StdIMEdivFetch20 (kg/m)": np.nan}
     return df, summary
+
+
+def merge_ime_into_plumelist(plume_df, ime_df, radius_m=150.0):
+    """Attach the emission-stage IME columns to a plume candidate list.
+
+    For each candidate, IME rows whose plume centroid lies within
+    ``radius_m`` (haversine) are matched; ``AvgIMEdivFetch20 (kg/m)`` /
+    ``StdIMEdivFetch20 (kg/m)`` are the mean/std of IME/fetch over the
+    matched rows *at the 20 m merge distance* (nearest available
+    distance otherwise — the reference's "20" column suffix denotes that
+    merge distance), and ``Aspect ratio20`` is the matched aspect at the
+    same distance — the three inputs ``compute_emission_rate`` consumes
+    (running_windspeed.py:35-119).
+    Candidates with no IME match keep NaN (emission stays NA).
+
+    Returns the plume DataFrame with the columns added in place.
+    """
+    avg_key = "AvgIMEdivFetch20 (kg/m)"
+    std_key = "StdIMEdivFetch20 (kg/m)"
+    ar_key = "Aspect ratio20"
+    for k in (avg_key, std_key, ar_key):
+        if k not in plume_df:
+            plume_df[k] = np.nan
+    if not len(ime_df):
+        return plume_df
+
+    ilat = ime_df["lat"].to_numpy(float)
+    ilon = ime_df["lon"].to_numpy(float)
+    idf = ime_df["ime_div_fetch"].to_numpy(float)
+    imd = ime_df["mergedist_m"].to_numpy(float)
+    iasp = (ime_df["aspect"].to_numpy(float) if "aspect" in ime_df
+            else np.full(len(ime_df), np.nan))
+
+    for i in plume_df.index:
+        try:
+            plat = float(plume_df.loc[i, "Plume Latitude (deg)"])
+            plon = float(plume_df.loc[i, "Plume Longitude (deg)"])
+        except (KeyError, TypeError, ValueError):
+            continue
+        d = gcdist(ilon, ilat, plon, plat)
+        near = d <= radius_m
+        if not near.any():
+            continue
+        # all stats at the 20 m merge distance (nearest distance otherwise)
+        cand = np.nonzero(near)[0]
+        md20 = imd[cand[np.argmin(np.abs(imd[cand] - 20.0))]]
+        at20 = cand[imd[cand] == md20]
+        vals = idf[at20]
+        vals = vals[np.isfinite(vals)]
+        if vals.size:
+            plume_df.loc[i, avg_key] = float(vals.mean())
+            plume_df.loc[i, std_key] = float(vals.std(ddof=0))
+        best = at20[np.argmin(d[at20])]
+        if np.isfinite(iasp[best]):
+            plume_df.loc[i, ar_key] = float(iasp[best])
+    return plume_df
+
+
+def main(argv=None):
+    """The compute-ime job surface (parameter names follow
+    deployment/compute-ime/invoke-ime:21-33)."""
+    p = argparse.ArgumentParser(
+        description="Per-plume IME/fetch statistics for a CMF product")
+    p.add_argument("cmf", help="4-band CMF ENVI image")
+    p.add_argument("-o", "--output", default=None,
+                   help="stats CSV (default: <cmf>_ime.csv)")
+    p.add_argument("--ppmmthr", type=float,
+                   default=IME_JOB_PARAMS["PPMMTHR"])
+    p.add_argument("--fetchmax", type=float,
+                   default=IME_JOB_PARAMS["FETCHMAX"])
+    p.add_argument("--mergedists", default="10 20 50",
+                   help='space-separated meters, e.g. "10 20 50"')
+    p.add_argument("--minarea", type=int, default=IME_JOB_PARAMS["MINAREA"])
+    args = p.parse_args(argv)
+
+    out = args.output or (args.cmf.rsplit(".", 1)[0] + "_ime.csv")
+    df, summary = compute_ime_for_cmf(
+        args.cmf, out_csv=out, ppmmthr=args.ppmmthr, fetchmax=args.fetchmax,
+        mergedists=tuple(float(d) for d in args.mergedists.split()),
+        minarea=args.minarea)
+    print(f"[INFO] {len(df)} plume rows -> {out}")
+    for k, v in summary.items():
+        print(f"[INFO] {k}: {v}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

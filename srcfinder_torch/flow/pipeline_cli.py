@@ -1,11 +1,14 @@
 """CLI: one flightline through the port in one command.
 
     python -m srcfinder_torch.flow.pipeline_cli RADIANCE --library LIB \\
-        --weights W.npz -o OUT [--masks] [--ime] [--method auto|shift|phase|dilated]
-        [--fcn-dtype float32|bfloat16] [--device cuda|cpu]
+        --weights W.npz -o OUT [--masks] [--ime] [--quicklooks]
+        [--winds WINDS_DIR --wind-ext .grib2|.npz]
+        [--method auto|shift|phase|dilated] [--fcn-dtype float32|bfloat16]
+        [--device cuda|cpu]
 
 runs radiance -> CMF [+ spectrometer masks] -> FCN saliency -> plume
-candidates (xlsx+csv) [-> IME stats], with per-stage idempotent skips
+candidates (xlsx+csv) [+ quicklook PDFs] [-> IME stats] [-> wind
+statistics and emission rates], with per-stage idempotent skips
 (existing outputs are reused — the reference's resume convention) and
 per-stage wall-clock timers. When both the CMF and the masks are to be
 made, one streaming read of the radiance feeds both (the masks' line
@@ -13,6 +16,11 @@ blocks also fill the CMF's active-band and RGB slabs). Products are
 written as ``<name>.part`` and renamed when complete, so a stage killed
 mid-write never leaves a final-named partial product for the next run to
 trust.
+
+``--watch DIR`` instead consumes new radiance files from a directory
+(DirWatcher + JobQueue, the S3-event analog) and keeps going on
+per-flightline failures; ``--once`` processes the backlog and exits, 1 if
+a flightline failed.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import sys
 import time
 
 import numpy as np
+import pandas as pd
 import torch
 
 from ..cmf.pipeline import active_range_for_library, robust_mf_image
@@ -32,7 +41,9 @@ from ..detect.fcn_pipeline import fcn_saliency_image, load_saliency_model
 from ..detect.salience import salience2detections, save_detections
 from ..device import resolve_device
 from ..masks.cli import flightline_mask_config, mask_output_name, masks_for_flightline
-from .ime_worker import compute_ime_for_cmf
+from .deploy import JobQueue, watch_and_trigger
+from .ime_worker import compute_ime_for_cmf, merge_ime_into_plumelist
+from .msf_flow import insert_plumes_in_file, process_plumes
 
 __all__ = ["run_flightline", "main"]
 
@@ -79,7 +90,9 @@ def _masks_config_ok(radiance, progress) -> bool:
 def run_flightline(radiance: str, library: str, weights: str, outdir: str,
                    model_name: str = "multi_64", prob_thr: float = 0.5,
                    ppmm_thr: float = 250.0, method: str = "auto",
+                   winds: str | None = None, wind_ext: str = ".grib2",
                    do_ime: bool = False, do_masks: bool = False,
+                   quicklooks: bool = False,
                    dtype="float32", fcn_dtype="float32", bgmodes: int = 1,
                    col_chunk: int = 256, progress=print, device="cuda"):
     """Run all stages for one flightline; returns a dict of products
@@ -91,8 +104,13 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
 
     ``dtype``: the CMF's precision; ``fcn_dtype``: the FCN trunk's
     ("float32" or "bfloat16"). ``bgmodes``: the CMF's background modes
-    per column (1: unimodal). ``device``: "cuda" (default; raises
-    without a card) or "cpu".
+    per column (1: unimodal). ``winds``: a directory of wind grids
+    (``hrrr*/`` and ``rtma*/`` subdirectories of ``wind_ext`` files), which
+    turns on the emission stage: the plume list, with the IME columns when
+    ``do_ime``, enriched with wind statistics and emission rates.
+    ``quicklooks``: a PDF per candidate beside the plume list.
+    ``device``: "cuda" (default; raises without a card) or "cpu"; the
+    emission stage's nearest-cell search runs there too.
     """
     dev = resolve_device(device)
     os.makedirs(outdir, exist_ok=True)
@@ -201,7 +219,8 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
             cmfimg = envi_io.open_envi(cmff)
             salmm = envi_io.open_envi(salf).load().squeeze()
             detdf = salience2detections(salmm, cmfimg.load(), prob_thr,
-                                        ppmm_thr, lid, mapinfo(cmfimg))
+                                        ppmm_thr, lid, mapinfo(cmfimg), detdir,
+                                        quicklooks=quicklooks)
             if len(detdf):
                 save_detections(xlsxf, detdf)
             else:
@@ -219,6 +238,32 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
             with _Stage("ime", timers, progress):
                 compute_ime_for_cmf(cmff, out_csv=imef)
 
+    # ---- L5b: winds / emissions ------------------------------------------
+    if winds and products["detections_csv"] and os.path.exists(products["detections_csv"]):
+        outcsv = os.path.join(outdir, stem + "_plumes_enriched.csv")
+        products["enriched_csv"] = outcsv
+        if os.path.exists(outcsv):
+            progress(f"[SKIP] enriched list exists: {outcsv}")
+        else:
+            with _Stage("msf-flow", timers, progress):
+                # the plume list's name carries the minppmm tag msf-flow
+                # parses (msf_flow.py:124-144)
+                tagged = os.path.join(outdir, f"{stem}_plumes_minppmm{int(ppmm_thr)}.csv")
+                pdf = pd.read_csv(products["detections_csv"])
+                imef = products.get("ime_csv")
+                if imef and os.path.exists(imef):
+                    # attach AvgIMEdivFetch20/StdIMEdivFetch20/Aspect ratio20,
+                    # the emission rate's inputs (the reference's compute-ime
+                    # job updates the plume list the same way)
+                    try:
+                        ime_df = pd.read_csv(imef)
+                    except pd.errors.EmptyDataError:   # zero detections
+                        ime_df = pd.DataFrame()
+                    merge_ime_into_plumelist(pdf, ime_df)
+                pdf.to_csv(tagged, index=False)
+                plumes = process_plumes([tagged], winds, ext=wind_ext, device=dev)
+                insert_plumes_in_file(plumes, outcsv)
+
     products["timers"] = timers
     return products
 
@@ -226,8 +271,9 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
 def build_parser():
     p = argparse.ArgumentParser(
         description="srcfinder (PyTorch/CUDA): radiance -> CMF [+ masks] -> "
-                    "saliency -> plume list [-> IME] in one command")
-    p.add_argument("radiance", help="radiance flightline (ENVI)")
+                    "saliency -> plume list [-> IME -> winds] in one command")
+    p.add_argument("radiance", nargs="?", default=None,
+                   help="radiance flightline (ENVI); optional with --watch")
     p.add_argument("--library", required=True,
                    help="unit-absorption library (name selects the gas "
                         "window, e.g. *ch4*.txt)")
@@ -244,7 +290,12 @@ def build_parser():
                    help="FCN path (auto: phase, line-blocked for long scenes; "
                         "dilated is refused past a 2.5 Mpx canvas, 3,647 "
                         "lines at width 598)")
+    p.add_argument("--winds", default=None,
+                   help="wind-grid directory (enables the emission stage)")
+    p.add_argument("--wind-ext", default=".grib2", choices=[".grib2", ".npz"])
     p.add_argument("--ime", action="store_true")
+    p.add_argument("--quicklooks", action="store_true",
+                   help="a PDF per candidate beside the plume list")
     p.add_argument("--masks", action="store_true",
                    help="also make the 4-band spectrometer QC mask (needs "
                         "wavelengths in the radiance header); with the CMF "
@@ -256,18 +307,47 @@ def build_parser():
     p.add_argument("--col_chunk", type=int, default=256)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="compute device (cuda raises without a card)")
+    p.add_argument("--watch", default=None,
+                   help="watch a directory for new radiance files instead of "
+                        "processing one")
+    p.add_argument("--watch-regex", default=r".*_rdn.*img$")
+    p.add_argument("--once", action="store_true",
+                   help="with --watch: process the current backlog and exit")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    products = run_flightline(
-        args.radiance, library=args.library, weights=args.weights,
-        outdir=args.outdir, model_name=args.model, prob_thr=args.prob_thr,
-        ppmm_thr=args.ppmm_thr, method=args.method, do_ime=args.ime,
-        do_masks=args.masks, dtype=args.dtype, fcn_dtype=args.fcn_dtype,
-        bgmodes=args.bgmodes,
-        col_chunk=args.col_chunk, device=args.device)
+    kwargs = dict(library=args.library, weights=args.weights,
+                  outdir=args.outdir, model_name=args.model,
+                  prob_thr=args.prob_thr, ppmm_thr=args.ppmm_thr,
+                  method=args.method, winds=args.winds, wind_ext=args.wind_ext,
+                  do_ime=args.ime, do_masks=args.masks,
+                  quicklooks=args.quicklooks, dtype=args.dtype,
+                  fcn_dtype=args.fcn_dtype, bgmodes=args.bgmodes,
+                  col_chunk=args.col_chunk, device=args.device)
+
+    if args.watch:
+        jobq = JobQueue()
+        jobq.register("flightline",
+                      lambda params: run_flightline(params["path"], **kwargs))
+        first = True
+        while True:
+            # the first cycle takes the existing backlog (the DirWatcher's
+            # cursor starts at 'now' when it has no state file)
+            watch_and_trigger(args.watch, "flightline", jobq,
+                              regex=args.watch_regex, force=first)
+            first = False
+            for failure in jobq.failures:
+                print(f"[FAIL] {failure}", file=sys.stderr)
+            if args.once:
+                return 1 if jobq.failures else 0
+            time.sleep(5)
+
+    if not args.radiance:
+        print("radiance file or --watch required", file=sys.stderr)
+        return 2
+    products = run_flightline(args.radiance, **kwargs)
     for k, v in products.items():
         print(f"{k}: {v}")
     return 0

@@ -3,7 +3,7 @@
 
 usage: python -m srcfinder_torch.masks.cli --txt FLIGHTS.txt --inpath DIR
            --outpath DIR [-T THR] [-dark THR] [-C THR] [-B 150m] [-M 150m]
-           [-A PX] [--device cuda|cpu] [...]
+           [-A PX] [--device cuda|cpu] [--store-in URI] [--store-out URI] [...]
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import time
 import numpy as np
 
 from ..core import envi as envi_io
+from ..flow.objectstore import open_store
 from .sds import MaskParams, get_radius_in_pixels, masks_for_cube
 
 __all__ = ["mask_output_name", "flightline_mask_config", "masks_for_flightline",
@@ -49,6 +50,13 @@ def build_parser():
     p.add_argument("--visible-mask-growing-threshold", type=float,
                    default=9.0, dest="vis_thr")
     p.add_argument("-o", "--overwrite", action="store_true")
+    p.add_argument("--store-in", default=None,
+                   help="object-store URI (s3://bucket/prefix or a local "
+                        "dir) to FETCH radiance from before processing — "
+                        "the AWS Batch variant's surface (reference: "
+                        "deployment/spectrometer-masks/masks_sds.py:261-330)")
+    p.add_argument("--store-out", default=None,
+                   help="object-store URI to UPLOAD the mask products to")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="device of the per-pixel tests (cuda raises without a card)")
     p.add_argument("-h", "--help", action="help")
@@ -187,25 +195,41 @@ def main(argv=None):
     with open(args.txt) as fd:
         files = fd.read().splitlines()
 
+    store_in = open_store(args.store_in)[0] if args.store_in else None
+    store_out = open_store(args.store_out)[0] if args.store_out else None
+
     for f_txt in files:
         if not f_txt.strip():
             continue
         print("Processing flight", f_txt)
-        # existing products are regenerated only with --overwrite
+        if store_in is not None:
+            os.makedirs(args.inpath, exist_ok=True)
+            for ext in (".hdr", ""):
+                if store_in.exists(f_txt + ext):
+                    store_in.get(f_txt + ext,
+                                 os.path.join(args.inpath, f_txt + ext))
+        # existing products are regenerated only with --overwrite, but the
+        # store-out upload below still runs either way (a resumed job must
+        # still deliver the product to the bucket)
         outname = mask_output_name(f_txt)
         if not args.overwrite and os.path.exists(os.path.join(args.outpath, outname)):
             print("Skipping existing " + outname)
-            continue
-        outname = masks_for_flightline(
-            os.path.join(args.inpath, f_txt + ".hdr"), args.outpath,
-            saturationthreshold=args.saturationthreshold,
-            saturationwindow=args.saturationwindow,
-            cld_threshold=args.cldthreshold[0], cldbands=args.cldbands,
-            dark_threshold=args.dark_threshold, cldbfr=args.cldbfr,
-            maskgrowradius=args.maskgrowradius, mingrowarea=args.mingrowarea,
-            block_step=args.block_step, vis_thr=args.vis_thr,
-            device=args.device, out_name=outname)
-        print("Generated " + outname)
+        else:
+            outname = masks_for_flightline(
+                os.path.join(args.inpath, f_txt + ".hdr"), args.outpath,
+                saturationthreshold=args.saturationthreshold,
+                saturationwindow=args.saturationwindow,
+                cld_threshold=args.cldthreshold[0], cldbands=args.cldbands,
+                dark_threshold=args.dark_threshold, cldbfr=args.cldbfr,
+                maskgrowradius=args.maskgrowradius, mingrowarea=args.mingrowarea,
+                block_step=args.block_step, vis_thr=args.vis_thr,
+                device=args.device, out_name=outname)
+            print("Generated " + outname)
+        if store_out is not None:
+            for ext in (".hdr", ""):
+                src = os.path.join(args.outpath, outname + ext)
+                if os.path.isfile(src):
+                    store_out.put(src, outname + ext)
     print("Completed all scenes")
     return 0
 

@@ -38,6 +38,7 @@ from srcfinder_tpu.detect.cnn_cli import save_weights
 from srcfinder_tpu.models import googlenet
 from srcfinder_torch.core.envi import open_envi
 from srcfinder_torch.flow import pipeline_cli
+from tests.test_torch_winds import assert_jax_selection_is_oracle, write_winds_dir
 
 torch.set_num_threads(1)
 
@@ -187,6 +188,13 @@ def test_pipeline_cli_main_and_device_guard(flightline, run32, capsys):
 
 def test_pipeline_imports_no_jax():
     code = ("import sys, srcfinder_torch.flow.pipeline_cli, "
+            "srcfinder_torch.flow.msf_flow, srcfinder_torch.flow.wind, "
+            "srcfinder_torch.flow.windgrid, srcfinder_torch.flow.emission, "
+            "srcfinder_torch.flow.stations, srcfinder_torch.flow.objectstore, "
+            "srcfinder_torch.flow.utils, srcfinder_torch.flow.deploy, "
+            "srcfinder_torch.flow.ime_worker, srcfinder_torch.flow.grib_cli, "
+            "srcfinder_torch.detect.salience, srcfinder_torch.detect.salience_cli, "
+            "srcfinder_torch.core.xlsx, "
             "srcfinder_torch.cmf.cli, srcfinder_torch.masks.cli, "
             "srcfinder_torch.detect.fcn_cli, srcfinder_torch.core.prefetch, "
             "srcfinder_torch.cmf.kmeans, srcfinder_torch.cmf.matched_filter, "
@@ -289,3 +297,105 @@ def test_pipeline_cli_bf16_dilated(flightline, run32, capsys):
     ref = open_envi(run32["saliency"]).load()
     np.testing.assert_array_equal(sal == -9999.0, ref == -9999.0)
     assert np.abs(sal - ref).max() < 2e-2
+
+
+# ---- the emission stage: --winds, the IME merge, quicklooks, --watch ----
+WIND_KW = dict(wind_ext=".npz", quicklooks=True)
+# exact: ids, names, coordinates, thresholds and the wind statistics (they
+# follow from the coordinates); every other number follows from ppm*m
+EXACT = ("Candidate ID", "Line name", "Plume Latitude (deg)",
+         "Plume Longitude (deg)", "Minimum Threshold (ppmm)")
+
+
+@pytest.fixture(scope="module")
+def winds(flightline):
+    d = flightline[0] / "winds"
+    files = write_winds_dir(str(d))
+    return str(d), files
+
+
+@pytest.fixture(scope="module")
+def run_winds(flightline, winds):
+    log = []
+    return _run(flightline, "outwinds", "float64", log, winds=winds[0], **WIND_KW), log
+
+
+@pytest.fixture(scope="module")
+def jax_winds(flightline, winds):
+    """The JAX package's run_flightline on the same scene, library,
+    weights and winds (its CMF in f32, its default)."""
+    from srcfinder_tpu.flow.pipeline_cli import run_flightline as jrun
+    d, rdn, libf, wf = flightline
+    return jrun(rdn, libf, wf, str(d / "outjax"), prob_thr=0.0, ppmm_thr=100.0,
+                do_ime=True, col_chunk=32, winds=winds[0],
+                progress=lambda *a: None, **WIND_KW)
+
+
+def _enriched(prods):
+    return pd.read_csv(prods["enriched_csv"], keep_default_na=False)
+
+
+def _assert_enriched_equal(got, ref, rtol):
+    assert list(got.columns) == list(ref.columns)
+    for c in ref.columns:
+        g, r = got[c].to_numpy(), ref[c].to_numpy()
+        if c in EXACT or c.startswith("Wind ") or r.dtype == object:
+            np.testing.assert_array_equal(g, r, err_msg=c)
+        else:
+            np.testing.assert_allclose(g, r, rtol=rtol, err_msg=c)
+
+
+def test_e2e_winds_equals_jax(run_winds, jax_winds, winds):
+    """The enriched plume list: the JAX run's columns and ids, the wind
+    statistics exactly (on coarse grids where the JAX package's f32
+    nearest-cell selection is the f64 one), rtol 1e-4 on the columns that
+    follow from ppm*m (the port's CMF in f64, the JAX package's in f32);
+    the quicklooks under the JAX run's file names."""
+    prods, log = run_winds
+    assert [m for m in log if m.startswith("[STAGE]")][::2] == [
+        "[STAGE] cmf", "[STAGE] fcn", "[STAGE] salience", "[STAGE] ime",
+        "[STAGE] msf-flow"]
+    got, ref = _enriched(prods), _enriched(jax_winds)
+    for lat, lon in zip(got["Plume Latitude (deg)"], got["Plume Longitude (deg)"]):
+        assert_jax_selection_is_oracle((lon, lat), winds[1])
+    _assert_enriched_equal(got, ref, rtol=1e-4)
+    assert len(got) >= 1 and sum(c.startswith("Wind Mean") for c in got) == 3
+    er = got["Emission Rate (kg/hr) [HRRR 10 m]"].to_numpy(np.float64)
+    mean = got[[c for c in got if c.startswith("Wind Mean (m/s) [HRRR 10 m")][0]]
+    np.testing.assert_allclose(
+        er, got["AvgIMEdivFetch20 (kg/m)"].to_numpy(np.float64) * mean * 3600,
+        rtol=1e-12)
+    assert np.isfinite(er).all()
+    tagged = os.path.join(os.path.dirname(prods["enriched_csv"]),
+                          "ang20200924t211102_rdn_v2y1_img_plumes_minppmm100.csv")
+    assert os.path.exists(tagged)
+    det = [sorted(f for f in os.listdir(os.path.dirname(p["detections_csv"]))
+                  if f.endswith(".pdf")) for p in (prods, jax_winds)]
+    assert det[0] == det[1] == [f"{i}.pdf" for i in got["Candidate ID"]]
+
+
+def test_watch_once_equals_direct_run_and_fails_with_1(flightline, winds, run_winds,
+                                                       capsys):
+    """--watch DIR --once through main: the watcher's one job gives the
+    direct run's enriched list; a rerun skips every stage; a watched file
+    that fails makes --once return 1."""
+    d, rdn, libf, wf = flightline
+    watched = d / "watched"
+    os.makedirs(watched)
+    for ext in ("", ".hdr"):
+        os.symlink(rdn + ext, watched / (os.path.basename(rdn) + ext))
+    args = ["--library", libf, "--weights", wf, "-o", str(d / "outwatch"),
+            "--prob_thr", "0.0", "--ppmm_thr", "100", "--col_chunk", "32",
+            "--dtype", "float64", "--ime", "--quicklooks", "--winds", winds[0],
+            "--wind-ext", ".npz", "--device", "cpu", "--watch", str(watched), "--once"]
+    assert pipeline_cli.main(args) == 0
+    enriched = d / "outwatch" / "ang20200924t211102_rdn_v2y1_img_plumes_enriched.csv"
+    got = pd.read_csv(enriched, keep_default_na=False)
+    pd.testing.assert_frame_equal(got, _enriched(run_winds[0]), check_exact=True)
+    capsys.readouterr()
+    assert pipeline_cli.main(args) == 0            # first cycle: the backlog again
+    assert capsys.readouterr().out.count("[SKIP]") == 5
+    (watched / "ang20200924t211103_rdn_v2y1_img").write_bytes(b"not envi")
+    assert pipeline_cli.main(args) == 1
+    assert "[FAIL]" in capsys.readouterr().err
+    assert pipeline_cli.main(args[:-3]) == 2       # no radiance, no --watch
