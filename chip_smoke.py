@@ -76,6 +76,32 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    candidates, grid reads, stage seconds, the device ms of one nearest-
    cell search at each grid size (CUDA events, median of 10) beside the
    whole call's and the oracle's host ms, and peak device memory.
+4d. Detection post-processing (phase_postproc, "postproc" line; it runs
+   right after phase 4) on the main path's 2801 x 598 CMF ppm*m band:
+   filtdet at the reference constants (k = 50) on the card and on the CPU
+   (the KDE within POST_TOL of its maximum, detkde within POST_TOL of it
+   over mfmax - mfmin, the components equal), gaussian_downsample from the scene's 3.1 m to 30 m
+   on both (within POST_TOL of the maximum, nodata cells equal), then
+   srcfinder_torch.detect.downsample_cli.main once on the card; ms of each.
+4e. The trainer (phase_train, "train" line; it runs after 4d) at
+   srcfinder-train's full width: a seeded campaign of 64 uncompressed
+   256 x 256 x 4 GeoTIFF tiles (CH4 in band 4, plume blobs on the positives; train.csv 48,
+   test.csv 16) and one LZW tile read and written on its own (the pure-
+   Python codec, timed); srcfinder_torch.train.cli.main in this process
+   (GoogLeNet-1ch with aux heads, crop 256, batch 16, SAM, 2 epochs,
+   CalCH4_v8), its hand-kernel counters zeroed just before and read just
+   after (none is on this path); finite losses, the CSVs, metrics.json, no
+   npz before the 5th epoch, the final npz reloading bit-equal; a one-epoch
+   --resume from it at epoch 4 of 5 with augC writes the 5-epoch npz. One
+   SAM step on the card against the same step on the CPU (same weights
+   and batch, dropout 0, aux_weight 0 and 0.3), per tensor (relative L2:
+   parameters, running statistics, momentum) within TRAIN_TOL or no
+   farther from the card's f64 step than TRAIN_RATIO times the CPU's, the
+   loss within TRAIN_TOL. Prints
+   the SAM and SGD step ms at batch 16 (median of 12 after 3, CUDA
+   events, and the host's ms to queue each step), images/s, each epoch's host data seconds against its device
+   step seconds (augA, augC), the device's idle share over one epoch of
+   the loop (torch.profiler), peak device memory.
 5. The exact dense CNN's trunk kernels (fused_stage12, trunk_s23,
    trunk_s3, trunk_s45) against their plain versions, on windows of 256 x
    256 gathered from a 16-line strip cut through the plume of the scene's
@@ -2164,6 +2190,380 @@ def phase_long_flightline(workdir, libf, wf):
     return checks
 
 
+# ---- detection post-processing (phase 4d) and the trainer (phase 4e) ----
+
+TRAIN_TILES, TRAIN_SIDE, TRAIN_BATCH = 64, 256, 16     # srcfinder-train's crop, batch
+TRAIN_ROWS = 48                    # train.csv; the other 16 tiles are test.csv
+TRAIN_CAMPAIGN = "CalCH4_v8"
+TRAIN_TIMED_STEPS = 12             # timed steps after TRAIN_WARMUP (median)
+TRAIN_WARMUP = 3
+# one SAM step on the card against the same step on the CPU (f32, TF32
+# off, dropout 0), per tensor (updated parameters, BatchNorm running
+# statistics, momentum buffers) by relative L2: within TRAIN_TOL of the
+# card's f64 step, or no farther from it than TRAIN_RATIO times the CPU's
+# f32 step (see sam_step_card_vs_cpu); the loss within TRAIN_TOL. At the
+# trainer's init about half of the 492 tensors lie past TRAIN_TOL from the
+# f64 step on either device; the card's largest ratio was 16.5 (fc.bias, a
+# cancelling sum over the batch; an NVIDIA H100 80GB HBM3, 700.00 W, against
+# its host CPU), and a wrong step puts a well-conditioned tensor ~1e5 times
+# farther than the CPU
+TRAIN_TOL = 1e-4
+TRAIN_RATIO = 50.0
+POST_TOL = 1e-5                    # filtdet's KDE, the downsampled raster
+
+
+def write_campaign(root):
+    """A seeded training campaign in the reference's layout: TRAIN_TILES
+    uncompressed 256 x 256 x 4 f32 GeoTIFF tiles (the port's writer; CH4 in
+    band 4, |N(0, 1)| x 200 ppm*m), labels 1 / 0 / -1 in turn, every
+    positive with an elongated gaussian plume of 800-2000 ppm*m from a
+    random source and heading; train.csv (the first TRAIN_ROWS), test.csv
+    (the rest) and data_labels.csv (all)."""
+    import numpy as np
+    from srcfinder_torch.core.geotiff import write_geotiff
+    cdir = os.path.join(root, TRAIN_CAMPAIGN, "tiles")
+    os.makedirs(cdir)
+    rng = np.random.default_rng(64)
+    yy, xx = np.mgrid[:TRAIN_SIDE, :TRAIN_SIDE].astype(np.float32)
+    rows = []
+    for i in range(TRAIN_TILES):
+        lab = 1 if i % 3 == 0 else (0 if i % 3 == 1 else -1)
+        tile = (np.abs(rng.normal(size=(TRAIN_SIDE, TRAIN_SIDE, 4))) * 200).astype(np.float32)
+        if lab == 1:
+            cy, cx = rng.uniform(64, 192, 2)
+            th, length = rng.uniform(0, np.pi), rng.uniform(20, 60)
+            u = (xx - cx) * np.cos(th) + (yy - cy) * np.sin(th)
+            v = (yy - cy) * np.cos(th) - (xx - cx) * np.sin(th)
+            tile[..., 3] += (np.exp(-0.5 * ((u / length) ** 2 + (v / (0.3 * length)) ** 2))
+                             * rng.uniform(800, 2000)).astype(np.float32)
+        write_geotiff(os.path.join(cdir, f"t{i:02d}.tif"), tile)
+        rows.append((f"tiles/t{i:02d}.tif", lab))
+    for name, sel in (("train.csv", rows[:TRAIN_ROWS]), ("test.csv", rows[TRAIN_ROWS:]),
+                      ("data_labels.csv", rows)):
+        with open(os.path.join(root, TRAIN_CAMPAIGN, name), "w") as f:
+            f.write("path,label\n")
+            f.writelines(f"{p},{lab}\n" for p, lab in sel)
+    return tile
+
+
+def _rel_l2(a, b):
+    import torch
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b) / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def sam_step_card_vs_cpu(x, y, weights):
+    """One SAM step (lr 1e-4, the CLI's first epoch) of the trainer's
+    network (seed 0, dropout 0) from the same weights and batch, at
+    aux_weight 0 and 0.3: in f32 on the card and on the CPU, and in f64 on
+    the card as the reference. Each tensor's relative L2 distance (updated
+    parameters, running statistics, momentum buffers) between card and
+    CPU is reported; the gate holds the card's f32 step as close to the
+    f64 step as the CPU's f32 step is (TRAIN_RATIO times its distance) or
+    within TRAIN_TOL. Some gradients are cancellations: a BatchNorm bias
+    whose channel the next BatchNorm recentres gets a gradient of edge and
+    ReLU terms only, which two f32 summation orders can put tens of percent
+    apart (an NVIDIA H100 against its host CPU: 0.67 for
+    inception3a.branch3.0.bn.bias at 256 x 256, batch 16, where the CPU
+    lies 0.66 from the f64 step)."""
+    import torch
+    from srcfinder_torch.models.googlenet import GoogLeNet
+    from srcfinder_torch.train import sam
+    start = GoogLeNet(num_classes=2, aux_logits=True,
+                      generator=torch.Generator().manual_seed(0)).state_dict()
+    out = {}
+    for aux in (0.0, 0.3):
+        runs = {}
+        for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                 ("card_f64", "cuda", torch.float64)):
+            model = GoogLeNet(num_classes=2, aux_logits=True, dropout=0.0, dropout_aux=0.0)
+            model.load_state_dict(start)
+            model.to(device=dev, dtype=dtype).train()
+            opt = sam.make_inner_optimizer(model.parameters())
+            step = sam.make_sam_train_step(
+                model, opt, torch.tensor(weights, device=dev, dtype=dtype), aux_weight=aux)
+            t0 = time.time()
+            loss = float(step(x.to(device=dev, dtype=dtype), y.to(dev), 1e-4))
+            secs = time.time() - t0
+            tensors = {k: v.detach().cpu() for k, v in model.state_dict().items()
+                       if not k.endswith("num_batches_tracked")}
+            tensors.update({f"momentum:{k}": opt.state[p]["momentum_buffer"].cpu()
+                            for k, p in model.named_parameters()})
+            runs[name] = (loss, tensors, secs)
+        card, cpu, ref = (runs[k][1] for k in ("card", "cpu", "card_f64"))
+        rows, over = [], []
+        for k in ref:
+            e_card, e_cpu = _rel_l2(card[k], ref[k]), _rel_l2(cpu[k], ref[k])
+            rows.append((_rel_l2(card[k], cpu[k]), e_card, e_cpu, k))
+            if e_card > TRAIN_TOL and e_card > TRAIN_RATIO * e_cpu:
+                over.append((k, e_card, e_cpu))
+        loss_err = abs(runs["card"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
+        past = [r for r in rows if r[1] > TRAIN_TOL]
+        out[f"aux_weight_{aux}"] = dict(
+            loss_card=runs["card"][0], loss_cpu=runs["cpu"][0], loss_f64=runs["card_f64"][0],
+            loss_rel=loss_err, card_s=runs["card"][2], cpu_s=runs["cpu"][2],
+            card_f64_s=runs["card_f64"][2], tensors=len(ref),
+            card_cpu_within_tol=sum(r[0] <= TRAIN_TOL for r in rows),
+            worst_card_cpu=sorted(rows, reverse=True)[:4],
+            card_f64_past_tol=len(past),
+            worst_ratio_past_tol=sorted(((r[1] / max(r[2], 1e-30), r[3]) for r in past),
+                                        reverse=True)[:6])
+        if over or not loss_err <= TRAIN_TOL:
+            print(json.dumps({"train_card_vs_cpu": out}), flush=True)
+            fail(f"SAM step card vs CPU (aux_weight {aux}): loss {loss_err}, farther than "
+                 f"{TRAIN_RATIO}x the CPU from the f64 step: {over[:5]}")
+    return out
+
+
+def step_ms(step, x, y):
+    """Median ms of ``step`` over TRAIN_TIMED_STEPS steps on one batch
+    after TRAIN_WARMUP: between two CUDA events around each step, and on
+    the host's clock around each call, which returns once the step's
+    kernels are queued (a host-bound step reads about the same on both)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for _ in range(TRAIN_WARMUP):
+        step(x, y, 1e-4, gen)
+    events, host = [], []
+    for _ in range(TRAIN_TIMED_STEPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        step(x, y, 1e-4, gen)
+        host.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in events)
+    return ms[len(ms) // 2], sorted(host)[len(host) // 2]
+
+
+def _epoch_times(outdir):
+    with open(os.path.join(outdir, "epoch_times.csv")) as f:
+        rows = list(csv.DictReader(f))
+    return [{k: float(v) for k, v in r.items()} for r in rows]
+
+
+def phase_train(workdir):
+    """srcfinder-train's path at the reference's full width (phase 4e)."""
+    import numpy as np
+    import torch
+    from srcfinder_torch.core.geotiff import read_geotiff, write_geotiff
+    from srcfinder_torch.train import cli as train_cli
+    from srcfinder_torch.train import sam
+    from srcfinder_torch.train import train as ttrain
+    from srcfinder_torch.ops import loo, moments, trunk_fuse
+    from srcfinder_torch.train.data import (TRAIN_CAMPAIGN_NORM, TiledDataset, load_labels_csv,
+                                            loss_weights_for)
+
+    root = os.path.join(workdir, "train_data")
+    t0 = time.time()
+    last_tile = write_campaign(root)
+    summary = dict(tiles=TRAIN_TILES, side=TRAIN_SIDE, batch=TRAIN_BATCH,
+                   campaign_write_s=time.time() - t0)
+    # the pure-Python LZW codec on one tile, timed on its own
+    lzw = os.path.join(workdir, "lzw_tile.tif")
+    t0 = time.time()
+    write_geotiff(lzw, last_tile, compress="lzw")
+    summary["lzw_tile_write_s"] = time.time() - t0
+    t0 = time.time()
+    back, _ = read_geotiff(lzw)
+    summary["lzw_tile_read_s"] = time.time() - t0
+    if not np.array_equal(back, last_tile):
+        fail("LZW tile read back differs")
+    t0 = time.time()
+    read_geotiff(os.path.join(root, TRAIN_CAMPAIGN, "tiles", "t63.tif"))
+    summary["plain_tile_read_s"] = time.time() - t0
+
+    # the CLI in this process: SAM, 2 epochs, its defaults otherwise
+    captured = {}
+    run_experiment = ttrain.train_experiment
+
+    def keep(cfg, progress=print):
+        captured["out"] = run_experiment(cfg, progress)
+        return captured["out"]
+
+    ttrain.train_experiment = keep
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in (moments.KERNEL, loo.KERNEL, trunk_fuse.KERNEL):
+            k.reset()
+        t0 = time.time()
+        train_cli.main([root, TRAIN_CAMPAIGN, "--epochs", "2", "--augment", "augA",
+                        "--outroot", os.path.join(workdir, "train_out")])
+        torch.cuda.synchronize()
+        summary["cli_s"] = time.time() - t0
+        summary["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        # no hand kernel is on this path (cuDNN convolutions under autograd)
+        summary["hand_kernel_launches"] = {k.name: k.launches for k in
+                                           (moments.KERNEL, loo.KERNEL, trunk_fuse.KERNEL)}
+        model, outdir, metrics = captured["out"]
+        with open(os.path.join(outdir, "batch_losses.csv")) as f:
+            losses = [float(r["loss"]) for r in csv.DictReader(f)]
+        if len(losses) != 2 * (TRAIN_ROWS // TRAIN_BATCH) or not np.isfinite(losses).all():
+            fail(f"batch losses {losses}")
+        for name in ("epoch_losses.csv", "val_losses.csv", "epoch_times.csv", "metrics.json"):
+            if not os.path.isfile(os.path.join(outdir, name)):
+                fail(f"training wrote no {name}")
+        weights = sorted(os.listdir(os.path.join(outdir, "weights")))
+        if len(weights) != 1 or not weights[0].startswith("final_"):
+            fail(f"weights after 2 epochs: {weights} (every 5th epoch and the final)")
+        final = os.path.join(outdir, "weights", weights[0])
+        reloaded = ttrain.load_into(ttrain.make_model(1, "cuda"), ttrain.load_checkpoint(final))
+        got, ref = reloaded.state_dict(), model.state_dict()
+        unequal = [k for k in ref if not k.endswith("num_batches_tracked")
+                   and not torch.equal(got[k], ref[k])]
+        if unequal:
+            fail(f"final npz reloads unequal: {unequal[:5]}")
+        summary.update(losses=losses, threshold=metrics["threshold"], f1=metrics["f1"],
+                       epochs_augA=_epoch_times(outdir))
+
+        # one epoch more from the final npz: epoch 4 of 5, so the
+        # every-5-epochs npz is written; augC, the costliest host augment
+        t0 = time.time()
+        train_cli.main([root, TRAIN_CAMPAIGN, "--epochs", "5", "--start-epoch", "4",
+                        "--augment", "augC", "--resume", final,
+                        "--outroot", os.path.join(workdir, "train_resume")])
+        torch.cuda.synchronize()
+        summary["resume_s"] = time.time() - t0
+        _, rdir, _ = captured["out"]
+        rweights = sorted(os.listdir(os.path.join(rdir, "weights")))
+        if len(rweights) != 2 or not rweights[0].startswith("4_"):
+            fail(f"weights of the resumed epoch 4: {rweights}")
+        summary["epochs_augC"] = _epoch_times(rdir)
+    finally:
+        ttrain.train_experiment = run_experiment
+
+    # one SAM step on the card against the CPU, on the first batch
+    rows = load_labels_csv(os.path.join(root, TRAIN_CAMPAIGN, "train.csv"))
+    mean, std = TRAIN_CAMPAIGN_NORM[TRAIN_CAMPAIGN]
+    ds = TiledDataset(os.path.join(root, TRAIN_CAMPAIGN), rows, mean, std, TRAIN_SIDE, "augA")
+    images, labels = next(ds.batches(TRAIN_BATCH, shuffle=False))
+    x = torch.from_numpy(images[..., 0])[:, None]
+    y = torch.from_numpy(labels.astype(np.int64))
+    class_w = loss_weights_for(rows)
+    summary["card_vs_cpu"] = sam_step_card_vs_cpu(x, y, class_w)
+    summary["tol"] = TRAIN_TOL
+
+    # step times at batch 16 with the CLI's dropout, CUDA events
+    xc, yc = x.cuda(), y.cuda()
+    times, host = {}, {}
+    for name, make in (("sam", sam.make_sam_train_step), ("sgd", sam.make_sgd_train_step)):
+        model = ttrain.make_model(0, "cuda")
+        opt = sam.make_inner_optimizer(model.parameters())
+        times[name], host[name] = step_ms(make(model, opt, torch.tensor(class_w, device="cuda")),
+                                          xc, yc)
+    # operations of one forward/backward pass from the shapes (convolutions
+    # and matrix products, FlopCounterMode on the meta device); a SAM step
+    # is two passes, an SGD step one; bound at the f32 peak (TF32 off)
+    from torch.utils.flop_counter import FlopCounterMode
+    meta = ttrain.make_model(0, "cpu").to("meta")
+    with FlopCounterMode(display=False) as counter:
+        logits, aux2, aux1 = meta(torch.empty(TRAIN_BATCH, 1, TRAIN_SIDE, TRAIN_SIDE,
+                                              device="meta"))
+        (logits.sum() + aux2.sum() + aux1.sum()).backward()
+    pass_flop = counter.get_total_flops()
+    summary.update(sam_step_ms=times["sam"], sgd_step_ms=times["sgd"],
+                   sam_host_ms=host["sam"], sgd_host_ms=host["sgd"],
+                   torch_threads=torch.get_num_threads(), cpus=os.cpu_count(),
+                   sam_images_per_s=TRAIN_BATCH / times["sam"] * 1e3,
+                   sgd_images_per_s=TRAIN_BATCH / times["sgd"] * 1e3,
+                   pass_gflop=pass_flop / 1e9,
+                   sam_bound_ms=2 * pass_flop / PEAK_FLOPS["float32"] * 1e3,
+                   sgd_bound_ms=pass_flop / PEAK_FLOPS["float32"] * 1e3)
+
+    # the device's idle share over one epoch of the training loop, augA and augC
+    prof = {}
+    for aug in ("augA", "augC"):
+        model = ttrain.make_model(0, "cuda")
+        opt = sam.make_inner_optimizer(model.parameters())
+        step = sam.make_sam_train_step(model, opt, torch.tensor(class_w, device="cuda"))
+        epoch_ds = TiledDataset(os.path.join(root, TRAIN_CAMPAIGN), rows, mean, std,
+                                TRAIN_SIDE, aug)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def epoch():
+            for images, labels in epoch_ds.batches(TRAIN_BATCH):
+                xb, yb = ttrain._to_device(images, labels, torch.device("cuda"))
+                step(xb, yb, 1e-4, gen)
+
+        epoch()                                  # warm-up: cuDNN's algorithm choice
+        p = device_profile(epoch)
+        prof[aug] = {k: p[k] for k in ("wall_ms", "device_busy_ms", "idle_share")}
+        prof[aug]["top"] = p["top"][:6]
+    summary["epoch_profile"] = prof
+    print(json.dumps({"train": summary}))
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_postproc(workdir, cmf_product):
+    """filtdet and the Gaussian downsampling on the scene's CMF band
+    (phase 4d)."""
+    import importlib
+    import numpy as np
+    import torch
+    from srcfinder_torch.core.envi import open_envi
+    from srcfinder_torch.core.geo import mapinfo
+    from srcfinder_torch.detect import downsample_cli
+    filtdet = importlib.import_module("srcfinder_torch.detect.filtdet")
+    posthoc = importlib.import_module("srcfinder_torch.detect.posthoc_down")
+
+    img = open_envi(cmf_product)
+    band = np.asarray(img.read_band(3), np.float32)
+    nodata = band == -9999.0
+    out = dict(shape=list(band.shape))
+
+    def timed(fn, dev):
+        fn()                                      # warm-up (cuFFT / cuDNN plans)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        r = fn()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return r, (time.time() - t0) * 1e3
+
+    res = {dev: timed(lambda d=dev: filtdet.filtdet(band, nodata, device=d), dev)
+           for dev in ("cuda", "cpu")}
+    (kc, cc), (kh, ch) = res["cuda"][0], res["cpu"][0]
+    kde_cpu = filtdet.kde(band, device="cpu").numpy()
+    kde_card = filtdet.kde(band, device="cuda").cpu().numpy()
+    kde_err = float(np.abs(kde_card - kde_cpu).max() / np.abs(kde_cpu).max())
+    det_err = float(np.abs(kc - kh).max() / (np.abs(kde_cpu).max()
+                                             / (filtdet.MFMAX - filtdet.MFMIN)))
+    if not (kde_err <= POST_TOL and det_err <= POST_TOL):
+        fail(f"filtdet card vs CPU: kde {kde_err}, detkde {det_err} over {POST_TOL}")
+    if not np.array_equal(cc, ch):
+        fail("filtdet detcomp differs between card and CPU")
+    kde_ms = cuda_ms(lambda: filtdet.kde(band, device="cuda"))
+    out["filtdet"] = dict(card_ms=res["cuda"][1], cpu_ms=res["cpu"][1], kde_device_ms=kde_ms,
+                          kde_err=kde_err, detkde_err=det_err, components=int(cc.max()),
+                          detected_px=int((kc > 0).sum()), k=filtdet.KERNEL)
+
+    src_res = float(mapinfo(img)["xps"])
+    res = {dev: timed(lambda d=dev: posthoc.gaussian_downsample(
+        band, src_res, 30.0, device=d).cpu().numpy(), dev) for dev in ("cuda", "cpu")}
+    dc, dh = res["cuda"][0], res["cpu"][0]
+    if dc.shape != dh.shape or not np.array_equal(dc == -9999.0, dh == -9999.0):
+        fail("gaussian_downsample: shape or nodata cells differ between card and CPU")
+    valid = dh != -9999.0
+    down_err = float(np.abs(dc[valid] - dh[valid]).max() / np.abs(dh[valid]).max())
+    if not down_err <= POST_TOL:
+        fail(f"gaussian_downsample card vs CPU {down_err} over {POST_TOL}")
+    out["downsample"] = dict(card_ms=res["cuda"][1], cpu_ms=res["cpu"][1], err=down_err,
+                             src_res=src_res, shape=list(dc.shape),
+                             nodata_cells=int((~valid).sum()))
+    dst = os.path.join(workdir, "cmf_30m")
+    t0 = time.time()
+    downsample_cli.main([cmf_product, dst, "-r", "30", "--band", "4"])
+    out["downsample_cli_s"] = time.time() - t0
+    if open_envi(dst).load().shape[:2] != dc.shape:
+        fail("downsample_cli product shape")
+    out["tol"] = POST_TOL
+    print(json.dumps({"postproc": out}))
+
+
 def cmf_times(tree):
     """Same-call A/B of the CMF kernels: ``python3 chip_smoke.py --cmf-times
     TREE`` times masked_moments and loo_sweep of TREE's srcfinder_torch
@@ -2280,6 +2680,8 @@ def main():
     try:
         flightline, cmf_product, rdn, libf = phase_main_path(workdir)
         launches = {k: ("run_flightline", n) for k, n in flightline.items()}
+        phase_postproc(workdir, cmf_product)
+        phase_train(workdir)
         winds_launches = phase_winds(workdir, rdn, libf, cmf_product)
         mm_launches, mm_checks = phase_multimodal(workdir, libf, write_weights(workdir))
         checks.update(mm_checks)

@@ -1,10 +1,11 @@
 """Geodesy: UTM <-> lat/lon, pixel <-> map coordinate transforms.
 
 Self-contained, vectorized replacement for the reference's geodesy stack
-(reference: srcfinder_util.py:815-1024 ``sl2xy``/``sl2latlon``/``mapinfo``
-and the external ``LatLongUTMconversion`` module it imports at
+(reference: srcfinder_util.py:815-1024 ``sl2xy``/``xy2sl``/``sl2latlon``/
+``mapinfo`` and the external ``LatLongUTMconversion`` module it imports at
 srcfinder_util.py:27 but does not ship): the pixel -> lat/lon direction the
-plume list and IME stages use. UTM conversion uses the standard
+plume list and IME stages use, the map -> pixel direction of the north-up
+warp, and the UTM zone's EPSG code of the GeoTIFF writer. UTM conversion uses the standard
 Snyder/USGS series on the WGS-84 ellipsoid (the same formulas as the
 classic public-domain UTMtoLL), vectorized with numpy.
 """
@@ -15,8 +16,8 @@ from collections import OrderedDict
 
 import numpy as np
 
-__all__ = ["utm2latlon", "sl2xy", "sl2latlon", "rotxy", "mapinfo",
-           "mapdict2str", "gcdist"]
+__all__ = ["utm2latlon", "utmzone2epsg", "sl2xy", "xy2sl", "sl2latlon", "rotxy",
+           "mapinfo", "mapdict2str", "gcdist"]
 
 DEG2RAD = np.pi / 180.0
 RAD2DEG = 180.0 / np.pi
@@ -25,6 +26,12 @@ RAD2DEG = 180.0 / np.pi
 _A = 6378137.0
 _ECC2 = 0.00669438
 _K0 = 0.9996
+
+
+def utmzone2epsg(zone, hemi):
+    """(reference: srcfinder_util.py:660-662)"""
+    assert hemi in ("N", "S")
+    return int(("326" if hemi == "N" else "327") + "%02d" % zone)
 
 
 def utm2latlon(easting, northing, zone, hemi="North", alpha=None, datum=None):
@@ -109,6 +116,16 @@ def sl2xy(s, l, **kwargs):
     if rot == 0:
         return xp, yp
     return rotxy(xp, yp, rot, x0, y0)
+
+
+def xy2sl(x, y, **kwargs):
+    """(x, y) map coordinate -> (sample, line) pixel
+    (reference: srcfinder_util.py:879-920)."""
+    x0, y0, xps, yps, rot, _ = _getmap(kwargs)
+    xp, yp = np.asarray(x) - x0, y0 - np.asarray(y)
+    if rot != 0:
+        xp, yp = rotxy(xp, yp, rot, 0, 0)
+    return xp / xps, yp / yps
 
 
 def sl2latlon(s, l, **kwargs):

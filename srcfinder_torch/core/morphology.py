@@ -15,7 +15,7 @@ import numpy as np
 from scipy import ndimage
 
 __all__ = ["CONN4", "CONN8", "imlabel", "findobj", "disk", "bwdist",
-           "mergelabels", "remove_small_objects"]
+           "mergelabels", "remove_small_objects", "relabel_sequential"]
 
 CONN4 = 1
 CONN8 = 2
@@ -96,3 +96,16 @@ def remove_small_objects(img, min_size: int, connectivity: int = CONN8):
     out = img.copy()
     out[~mask] = 0 if img.dtype != bool else False
     return out
+
+
+def relabel_sequential(labimg, offset: int = 1):
+    """Relabel to consecutive ids starting at ``offset``
+    (reference: srcfinder_util.py:1410-1412; returns (relabeled, fw, inv)
+    like skimage where fw/inv are value-lookup arrays)."""
+    labimg = np.asarray(labimg)
+    labels = np.unique(labimg)
+    labels = labels[labels != 0]
+    fw = np.zeros(labimg.max() + 1 if labimg.size else 1, dtype=np.int64)
+    fw[labels] = np.arange(offset, offset + len(labels))
+    inv = np.concatenate([[0], labels])
+    return fw[labimg], fw, inv

@@ -9,11 +9,16 @@ torch checkpoint names and layouts (conv OIHW, linear (out, in)).
 
 - :func:`flax_to_torch_state_dict`: Flax tree (nested or flattened, numpy)
   -> the port's ``state_dict`` — the one path by which both packages get
-  the same weights.
+  the same weights (with ``aux_heads=True`` also the trainer's aux heads).
 - :func:`torch_state_dict_to_flax`: the inverse (reference ``.pt`` ->
-  Flax tree).
+  Flax tree), aux heads included when the ``state_dict`` has them.
 - :func:`load_weights` / :func:`save_weights`: ``.npz`` (Flax layout) and
-  ``.pt`` (torch layout) files.
+  ``.pt`` (torch layout) files; ``load_weights`` gives the inference
+  network's ``state_dict``, without aux heads.
+
+The aux heads' ``fc1`` reads 128 x 4 x 4 activations: torch flattens them
+C*H*W, flax H*W*C, so its 2048-wide input axis is permuted both ways (the
+JAX package's ``models/convert.py::_aux_fc1``).
 """
 
 from __future__ import annotations
@@ -39,11 +44,24 @@ def unflatten(flat):
     return tree
 
 
-def flax_to_torch_state_dict(variables):
+def _aux_fc1_to_torch(w):
+    """(2048 = H*W*C, 1024) flax -> (1024, 2048 = C*H*W) torch."""
+    return np.transpose(np.asarray(w).reshape(4, 4, 128, 1024),
+                        (3, 2, 0, 1)).reshape(1024, 2048)
+
+
+def _aux_fc1_to_flax(w):
+    """(1024, 2048 = C*H*W) torch -> (2048 = H*W*C, 1024) flax."""
+    return np.transpose(np.asarray(w).reshape(1024, 128, 4, 4),
+                        (2, 3, 1, 0)).reshape(2048, 1024)
+
+
+def flax_to_torch_state_dict(variables, aux_heads: bool = False):
     """Flax GoogLeNet variables (numpy leaves; nested, or flattened with
     ``/`` keys) -> the port's ``state_dict`` (torch tensors, reference
-    names). Aux-head parameters are dropped: the port's network is the
-    inference trunk. Every BatchNorm gets ``num_batches_tracked = 0``."""
+    names). Aux-head parameters are dropped unless ``aux_heads`` (the
+    inference network has none; the trainer's ``GoogLeNet(aux_logits=True)``
+    loads them). Every BatchNorm gets ``num_batches_tracked = 0``."""
     if any("/" in k for k in variables):
         variables = unflatten(variables)
     out = {}
@@ -61,10 +79,12 @@ def flax_to_torch_state_dict(variables):
     sd = {}
     for path, v in out.items():
         mods, flax_leaf = list(path[:-1]), path[-1]
-        if mods[0] in ("aux1", "aux2"):
+        if mods[0] in ("aux1", "aux2") and not aux_heads:
             continue
         name = re.sub(r"branch(\d)_(\d)", r"branch\1.\2", ".".join(mods))
-        if flax_leaf == "kernel":
+        if flax_leaf == "kernel" and name.endswith(".fc1"):
+            sd[name + ".weight"] = _aux_fc1_to_torch(v)
+        elif flax_leaf == "kernel":
             v = np.transpose(v, (3, 2, 0, 1) if v.ndim == 4 else (1, 0))
             sd[name + ".weight"] = v
         elif flax_leaf == "scale":
@@ -108,18 +128,32 @@ def _assign(tree, path, value):
 
 def torch_state_dict_to_flax(sd):
     """The port's (or the reference's) canonical ``state_dict`` -> Flax
-    ``{"params": ..., "batch_stats": ...}`` with numpy leaves. Aux heads
-    and ``num_batches_tracked`` are skipped."""
+    ``{"params": ..., "batch_stats": ...}`` with numpy leaves, aux heads
+    included where present. ``num_batches_tracked`` is skipped."""
     params: dict = {}
     stats: dict = {}
     for key, val in sd.items():
-        if key.endswith("num_batches_tracked") or key.startswith(("aux1.", "aux2.")):
+        if key.endswith("num_batches_tracked"):
             continue
         v = val.detach().cpu().numpy() if hasattr(val, "detach") else np.asarray(val)
         parts = key.split(".")
         if parts[0] == "fc":
             leaf = "kernel" if parts[1] == "weight" else "bias"
             _assign(params, ["fc", leaf], v.T if leaf == "kernel" else v)
+            continue
+        m = re.match(r"(aux\d)\.(fc\d)\.(weight|bias)$", key)
+        if m:
+            aux, fc, leaf = m.groups()
+            if leaf == "bias":
+                _assign(params, [aux, fc, "bias"], v)
+            else:
+                _assign(params, [aux, fc, "kernel"],
+                        _aux_fc1_to_flax(v) if fc == "fc1" else v.T)
+            continue
+        m = re.match(r"(aux\d)\.conv\.(conv|bn)\.(.+)", key)
+        if m:
+            aux, mod, leaf = m.groups()
+            _route_convbn(params, stats, [aux, "conv"], mod, leaf, v)
             continue
         m = re.match(r"(inception\d[a-e])\.(branch\d(?:\.\d)?)\.(conv|bn)\.(.+)", key)
         if m:

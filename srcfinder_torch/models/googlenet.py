@@ -9,7 +9,12 @@ pools padded with -inf. Layout is NCHW; parameter names are the
 reference's torch names (``inception3a.branch2.1.conv.weight``), so its
 ``state_dict`` is the reference checkpoint layout.
 
-This is the inference network: no aux heads, no dropout.
+By default it is the inference network. ``aux_logits=True`` adds the two
+auxiliary classifiers the trainer needs (``aux1`` after inception4a,
+``aux2`` after inception4d); in ``model.train()`` the forward then returns
+``(logits, aux2, aux1)``, the JAX package's order. Training mode draws its
+dropout masks from the ``generator`` passed to ``forward``, and its
+BatchNorm layers keep flax's running-statistics rule (:class:`BatchNorm2d`).
 ``forward(x, dilated=True)`` runs the trunk a-trous (every stride-2 op at
 stride 1, later kernels dilated by the stride removed so far), which gives
 the dense full-resolution stride-32 feature field in one pass. Two
@@ -21,6 +26,7 @@ weight and bias (:func:`fold_inference`).
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from functools import partial
 
 import numpy as np
@@ -28,8 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["GoogLeNet", "CAMPAIGN_NORM", "fuse_state_dict",
-           "fold_state_dict", "fold_inference"]
+__all__ = ["GoogLeNet", "InceptionAux", "BatchNorm2d", "frozen_stats",
+           "CAMPAIGN_NORM", "fuse_state_dict", "fold_state_dict", "fold_inference"]
 
 #: per-campaign normalization constants
 #: (reference: cnn/cnn_pred_pipeline.py:126-157)
@@ -71,6 +77,64 @@ def _dilated_maxpool(x, window: int, d: int, symmetric: bool = False):
     return F.max_pool2d(x, window, stride=1, dilation=d)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``torch.nn.BatchNorm2d`` with flax's running-statistics rule.
+
+    Flax's ``nn.BatchNorm(momentum=0.9)`` (the JAX package's
+    ``models/googlenet.py:134``) updates ``ra <- 0.9 ra + 0.1 batch`` with
+    the *biased* batch variance; torch's ``momentum=0.1`` is the same
+    average but folds in the unbiased variance, n/(n-1) larger. Scaling
+    the running variance by n/(n-1) before torch's update and by (n-1)/n
+    after it leaves ``0.9 ra + 0.1 var_biased``. Normalisation (batch
+    statistics in training, running ones in eval) is torch's own.
+    ``update_stats = False`` normalises with batch statistics and leaves
+    the running ones alone (:func:`frozen_stats`)."""
+
+    update_stats = True
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        if not self.update_stats:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                                0.0, self.eps)
+        n = x.numel() // x.shape[1]
+        # a scaled copy: autograd keeps the tensor batch_norm was given
+        var = self.running_var * (n / (n - 1))
+        out = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                           True, self.momentum, self.eps)
+        with torch.no_grad():
+            torch.mul(var, (n - 1) / n, out=self.running_var)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+@contextmanager
+def frozen_stats(model: nn.Module):
+    """Inside, every :class:`BatchNorm2d` of ``model`` normalises with
+    batch statistics and does not update its running ones: the second
+    pass of a SAM step (reference: experiment_script_all.py:356-367)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield model
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
+def _dropout(x, p: float, training: bool, generator):
+    """Inverted dropout whose mask comes from ``generator`` (flax
+    ``nn.Dropout`` semantics: keep with probability 1 - p, scale by
+    1 / (1 - p)); the identity outside training or at p = 0."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+
+
 class BasicConv2d(nn.Module):
     """conv(bias=False) + BatchNorm(eps=1e-3) + ReLU, or, folded,
     conv(bias) + ReLU (reference: googlenet1.py:266-275)."""
@@ -80,7 +144,7 @@ class BasicConv2d(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel_size, stride, padding,
                               bias=folded)
-        self.bn = None if folded else nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn = None if folded else BatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x, dilation: int = 1, stride_one: bool = False):
         """``dilation`` dilates the kernel (and scales its padding);
@@ -134,6 +198,25 @@ class Inception(nn.Module):
         return torch.cat([b1, b2, b3, b4], dim=1)
 
 
+class InceptionAux(nn.Module):
+    """Aux classifier head (reference: googlenet1.py:231-263): adaptive
+    average pool to 4 x 4 (torch's bins, which overlap when the side does
+    not divide), BasicConv2d to 128 channels, fc1 2048 -> 1024 over the
+    C*H*W flattening, ReLU, dropout, fc2."""
+
+    def __init__(self, cin: int, num_classes: int, dropout: float = 0.7):
+        super().__init__()
+        self.conv = BasicConv2d(cin, 128, 1)
+        self.fc1 = nn.Linear(2048, 1024)
+        self.fc2 = nn.Linear(1024, num_classes)
+        self.dropout = dropout
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        x = torch.flatten(self.conv(F.adaptive_avg_pool2d(x, (4, 4))), 1)
+        x = _dropout(F.relu(self.fc1(x)), self.dropout, self.training, generator)
+        return self.fc2(x)
+
+
 class GoogLeNet(nn.Module):
     """1-channel GoogLeNet (reference: googlenet1.py:27-163), NCHW.
 
@@ -161,12 +244,15 @@ class GoogLeNet(nn.Module):
     """
 
     def __init__(self, num_classes: int = 2, fused: bool = False,
-                 folded: bool = False, generator: torch.Generator | None = None):
+                 folded: bool = False, generator: torch.Generator | None = None,
+                 aux_logits: bool = False, dropout: float = 0.2,
+                 dropout_aux: float = 0.7):
         super().__init__()
         conv = partial(BasicConv2d, folded=folded)
         inc = partial(Inception, fused=fused, folded=folded)
         self.fused, self.folded = fused, folded
         self.num_classes = num_classes
+        self.aux_logits, self.dropout = aux_logits, dropout
         self.conv1 = conv(1, 64, 7, stride=2, padding=3)
         self.conv2 = conv(64, 64, 1)
         self.conv3 = conv(64, 192, 3, padding=1)
@@ -179,8 +265,18 @@ class GoogLeNet(nn.Module):
         self.inception4e = inc(528, 256, 160, 320, 32, 128, 128)
         self.inception5a = inc(832, 256, 160, 320, 32, 128, 128)
         self.inception5b = inc(832, 384, 192, 384, 48, 128, 128)
+        if aux_logits:
+            self.aux1 = InceptionAux(512, num_classes, dropout_aux)
+            self.aux2 = InceptionAux(528, num_classes, dropout_aux)
         self.fc = nn.Linear(1024, num_classes)
         self.reset_parameters(generator)
+
+    def train(self, mode: bool = True):
+        """Folded and fused models are inference-only (JAX package:
+        ``models/googlenet.py:122-123``)."""
+        if mode and (self.fused or self.folded):
+            raise ValueError("a folded or fused GoogLeNet is inference-only")
+        return super().train(mode)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -197,9 +293,12 @@ class GoogLeNet(nn.Module):
 
     def forward(self, x, stage: int | None = None, features_only: bool = False,
                 start_stage: int = 1, start_pooled: bool = False,
-                dilated: bool = False):
+                dilated: bool = False, generator: torch.Generator | None = None):
+        """``generator`` draws the dropout masks in training mode."""
         if dilated:
             return self._dilated_features(x)
+        heads = stage is None and self.aux_logits and self.training
+        aux1 = aux2 = None
 
         def runs(k):
             return stage in (None, k) and start_stage <= k
@@ -220,10 +319,13 @@ class GoogLeNet(nn.Module):
             if stage == 3:
                 return x
         if runs(4):
-            x = lead_pool(4, 3)
-            for blk in (self.inception4a, self.inception4b, self.inception4c,
-                        self.inception4d, self.inception4e):
-                x = blk(x)
+            x = self.inception4a(lead_pool(4, 3))
+            if heads:
+                aux1 = self.aux1(x, generator)
+            x = self.inception4d(self.inception4c(self.inception4b(x)))
+            if heads:
+                aux2 = self.aux2(x, generator)
+            x = self.inception4e(x)
             if stage == 4:
                 return x
         if runs(5):
@@ -232,7 +334,11 @@ class GoogLeNet(nn.Module):
                 return x
         if features_only:
             return x
-        return self.fc(x.mean(dim=(2, 3)))
+        x = self.fc(_dropout(x.mean(dim=(2, 3)), self.dropout, self.training,
+                             generator))
+        if self.training and self.aux_logits:
+            return x, aux2, aux1
+        return x
 
     def _dilated_features(self, x):
         """The a-trous trunk: conv1 at stride 1, each stride-2 pool at

@@ -199,8 +199,17 @@ def test_pipeline_imports_no_jax():
             "srcfinder_torch.detect.fcn_cli, srcfinder_torch.core.prefetch, "
             "srcfinder_torch.cmf.kmeans, srcfinder_torch.cmf.matched_filter, "
             "srcfinder_torch.core.directio, srcfinder_torch.core.envi, "
-            "srcfinder_torch.triage.profile, srcfinder_torch.triage.cli; "
+            "srcfinder_torch.triage.profile, srcfinder_torch.triage.cli, "
+            "srcfinder_torch.train, srcfinder_torch.train.sam, "
+            "srcfinder_torch.train.data, srcfinder_torch.train.train, "
+            "srcfinder_torch.train.cli, srcfinder_torch.core.geotiff, "
+            "srcfinder_torch.core.warp, srcfinder_torch.detect.filtdet, "
+            "srcfinder_torch.detect.posthoc_down, "
+            "srcfinder_torch.detect.downsample_cli; "
             "assert 'flax' not in sys.modules, 'flax'; "
+            "assert 'optax' not in sys.modules, 'optax'; "
+            "assert 'orbax' not in sys.modules, 'orbax'; "
+            "assert 'sklearn' not in sys.modules, 'sklearn'; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert 'srcfinder_tpu' not in sys.modules, 'srcfinder_tpu'")
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
