@@ -176,6 +176,36 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    kept here only), in turns per 500-line block, byte-equal, with the
    mode each file ended in ("readers").
 
+9. Multi-GPU ("multigpu" line; it runs after phase 7, on the main path's
+   scene): a mesh of every card where there are two or more, else
+   MG_SHARDS_ONE_CARD shards on card 0 (which proves the sharding and the
+   gather, not a speed-up; the line says which). shard_columns_mf over the
+   scene's active cube in its three 256-column chunks (f32, 201 alphas)
+   against the single-device call (mf within TOL of its maximum, every
+   column's alpha the same or its nll minimum within TOL), K1 and K2
+   launched shards x chunks times from zero; the first chunk with two
+   background modes (bgmodes=2): labels equal to the single call's.
+   fcn_phase_saliency(mesh=) on the CMF band with the trained-like weights
+   within PATH_TOL of the single call; cnn_window_saliency_sharded on the
+   strip at the CLI's configuration (bf16, batch 4096, stage12) equal bit
+   for bit to the single call, P2, s3 and s45 counted from zero, with one
+   batch's host queue ms beside its device ms and the same batch on every
+   shard at once (each thread's start and end). Seconds of each sharded
+   call beside the single call's (both warmed up first) and each card's
+   peak memory.
+   Then MG_RANKS data-parallel ranks of the trainer (NCCL, one card each,
+   where there are two or more cards; else gloo, both on card 0): one f64
+   SAM step (dropout 0) on phase 4e's first global batch of 16 held to the
+   one-process f64 step (MG_DP_TOL per tensor, the loss within
+   MG_LOSS_ATOL); each rank's f32 SAM step ms (CUDA events) and host ms
+   with its reductions and, on the same rows, without them (the share the
+   data-parallel step adds), one all-reduce's device us at 8 KB and 28 MB,
+   and rank 0's host ops with the most self time in a data-parallel step
+   (torch.profiler); then
+   srcfinder_torch.train.cli.main --devices MG_RANKS for one epoch of the
+   campaign, each file written once. The backend that ran is printed and
+   must be NCCL on two or more cards.
+
 Any failed phase exits non-zero without the result line. The last line
 of standard output is {"ok": true, "device": {...}}.
 
@@ -185,6 +215,13 @@ of standard output is {"ok": true, "device": {...}}.
 only time the CMF kernels (on phase 3's inputs; see cmf_times) or P2,
 fused_stage12 (on seeded windows; see trunk_times), of TREE's
 srcfinder_torch, for a same-call A/B of two commits.
+
+    python3 chip_smoke.py --train-times TREE
+    python3 chip_smoke.py --multigpu
+
+time the one-card SAM step of TREE's srcfinder_torch (see train_times;
+old, new, new, old in one call), and run phase 9 alone (after the build,
+on the main path's scene), with no result line.
 """
 
 from __future__ import annotations
@@ -2564,6 +2601,440 @@ def phase_postproc(workdir, cmf_product):
     print(json.dumps({"postproc": out}))
 
 
+# the multi-GPU phase (phase 9): shards per card when the machine has one
+# card (four shards' working sets at once: the exact CNN's three batches of
+# 4096 windows peak near 3 x 11.26 GB), ranks of the data-parallel trainer
+MG_SHARDS_ONE_CARD = 4
+MG_RANKS = 2
+# the data-parallel f64 SAM step against the one-process f64 step, per
+# tensor by relative L2 (parameters by their change): the bound of
+# tests/test_torch_train_ddp.py, where 3 steps at batch 4 and crop 32 came
+# within 1.2e-8; the loss within MG_LOSS_ATOL
+MG_DP_TOL = 1e-7
+MG_LOSS_ATOL = 1e-10
+MG_TIMED_STEPS = 12                # timed data-parallel steps after TRAIN_WARMUP
+
+
+def mg_mesh():
+    """Every card where there are two or more, else MG_SHARDS_ONE_CARD
+    shards on card 0; and the trainer's device argument for MG_RANKS
+    ranks: one card each (NCCL) or both on card 0 (gloo)."""
+    import torch
+    from srcfinder_torch.parallel import make_mesh
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return make_mesh(n, "cuda"), "cuda"
+    return make_mesh(device=["cuda:0"] * MG_SHARDS_ONE_CARD), "cuda:0"
+
+
+def mg_timed(mesh, stats, tag, fn):
+    """``fn()`` with every card of ``mesh`` synchronised before and after:
+    seconds and each card's peak device memory into ``stats[tag]``."""
+    import torch
+    cards = sorted(set(mesh), key=lambda d: d.index)
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    t0 = time.time()
+    out = fn()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    stats[tag] = dict(s=time.time() - t0, peak_mem_bytes={
+        str(d): torch.cuda.max_memory_allocated(d) for d in cards})
+    return out
+
+
+def mg_alpha_check(got, ref, tol):
+    """Sharded against single-device LOOCV: the same alpha index on every
+    column, or nll minima within ``tol`` (relative) where the index
+    differs. Returns the columns that picked another index."""
+    diff = (got.alpha_index != ref.alpha_index).nonzero().flatten().tolist()
+    for c in diff:
+        mk, mr = got.nll[c].min().item(), ref.nll[c].min().item()
+        if not abs(mk - mr) <= tol * abs(mr):
+            fail(f"multigpu: column {c} picks alpha {got.alpha_index[c].item()} "
+                 f"against {ref.alpha_index[c].item()}, minima {mk} / {mr}")
+    return diff
+
+
+def mg_dp_worker(rank, world, dev, root, outdir):
+    """A rank of the data-parallel checks (chip_smoke's own worker, spawned
+    by srcfinder_torch.train.ddp.spawn): one f64 SAM step (dropout 0) on
+    its rows of the campaign's first global batch, rank 0 writing the state
+    to ``outdir/dp_f64.npz``; then the f32 step at the CLI's dropout timed
+    on CUDA events (median of MG_TIMED_STEPS after TRAIN_WARMUP), with its
+    reductions and, on the same rows, without (the unwrapped model, this
+    rank's rows alone), each rank writing ``outdir/dp_ms_<rank>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from srcfinder_torch.models.googlenet import BatchNorm2d, GoogLeNet
+    from srcfinder_torch.train import ddp, sam
+    from srcfinder_torch.train import train as ttrain
+    x, y, w = mg_first_batch(root)
+    xs, ys, group = ddp.shard_batch(x, y, rank, world)
+    xs, ys = xs.to(dev), ys.to(dev)
+
+    model = GoogLeNet(num_classes=2, aux_logits=True, dropout=0.0, dropout_aux=0.0,
+                      generator=torch.Generator().manual_seed(0)).double().to(dev).train()
+    opt = sam.make_inner_optimizer(model.parameters())
+    step = sam.make_sam_train_step(ddp.wrap(model, dev), opt,
+                                   torch.tensor(w, dtype=torch.float64, device=dev))
+    loss = float(step(xs.double(), ys, 1e-4, None, group=group))
+    if rank == 0:
+        state = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+        state.update({f"momentum:{k}": opt.state[p]["momentum_buffer"].cpu().numpy()
+                      for k, p in model.named_parameters()})
+        np.savez(os.path.join(outdir, "dp_f64.npz"), loss=loss, **state)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    model = ttrain.make_model(0, dev)
+    wt = torch.tensor(w, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1 + rank)
+    out = {}
+    for tag, net, g in (("dp", ddp.wrap(model, dev), group), ("local", model, None)):
+        step = sam.make_sam_train_step(net, sam.make_inner_optimizer(model.parameters()), wt)
+        dist.barrier()                          # the ranks time the same variant at once
+        for _ in range(TRAIN_WARMUP):
+            step(xs, ys, 1e-4, gen, group=g)
+        events, host = [], []
+        for _ in range(MG_TIMED_STEPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            t0 = time.perf_counter()
+            step(xs, ys, 1e-4, gen, group=g)
+            host.append((time.perf_counter() - t0) * 1e3)
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize(dev)
+        ms = sorted(a.elapsed_time(b) for a, b in events)
+        out[f"{tag}_sam_step_ms"] = ms[len(ms) // 2]
+        out[f"{tag}_sam_host_ms"] = sorted(host)[len(host) // 2]
+        if tag == "dp":
+            # where a data-parallel step's host time goes: two steps under
+            # torch.profiler, the host ops with the most self time
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                for _ in range(2):
+                    step(xs, ys, 1e-4, gen, group=g)
+                torch.cuda.synchronize(dev)
+            top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+            out["dp_step_host_top"] = [(e.key, e.count // 2, e.self_cpu_time_total / 2e3)
+                                       for e in top]
+    # one all-reduce's device time (CUDA events, mean of 50 after one): the
+    # largest BatchNorm's sums (2 x 1024 f32), and the gradients' 28 MB
+    for tag, numel in (("allreduce_8KB_us", 2 * 1024), ("allreduce_28MB_us", 7 * 2 ** 20)):
+        t = torch.ones(numel, device=dev)
+        dist.all_reduce(t)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        dist.barrier()
+        a.record()
+        for _ in range(50):
+            dist.all_reduce(t)
+        b.record()
+        torch.cuda.synchronize(dev)
+        out[tag] = a.elapsed_time(b) / 50 * 1e3
+    # collectives of a SAM step: each BatchNorm's sums forward and backward
+    # in both passes, and the loss's weight sums and value
+    out["batchnorm_layers"] = sum(isinstance(m, BatchNorm2d) for m in model.modules())
+    out["rows"] = int(xs.shape[0])
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    with open(os.path.join(outdir, f"dp_ms_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mg_first_batch(root):
+    """The campaign's first global batch (augA, unshuffled) as NCHW f32 on
+    the host, its labels and the class weights."""
+    import numpy as np
+    import torch
+    from srcfinder_torch.train.data import (TRAIN_CAMPAIGN_NORM, TiledDataset,
+                                            load_labels_csv, loss_weights_for)
+    rows = load_labels_csv(os.path.join(root, TRAIN_CAMPAIGN, "train.csv"))
+    mean, std = TRAIN_CAMPAIGN_NORM[TRAIN_CAMPAIGN]
+    ds = TiledDataset(os.path.join(root, TRAIN_CAMPAIGN), rows, mean, std, TRAIN_SIDE, "augA")
+    images, labels = next(ds.batches(TRAIN_BATCH, shuffle=False))
+    return (torch.from_numpy(images[..., 0])[:, None],
+            torch.from_numpy(labels.astype(np.int64)), loss_weights_for(rows))
+
+
+def phase_multigpu(workdir, rdn, libf, cmf_product, strip, cnn_weights):
+    """Phase 9: the sharded inference paths and data-parallel training
+    (see the module docstring). Returns {kernel: sharded launches}."""
+    import numpy as np
+    import torch
+    from srcfinder_torch.cmf import matched_filter as mfmod
+    from srcfinder_torch.cmf.pipeline import active_range_for_library, load_library
+    from srcfinder_torch.core.envi import open_envi
+    from srcfinder_torch.detect import cnn_pipeline as tcp
+    from srcfinder_torch.detect import fcn_pipeline as tfp
+    from srcfinder_torch.detect.preprocess import norm_for_model, preprocess_ch4
+    from srcfinder_torch.models.convert import load_weights
+    from srcfinder_torch.models.googlenet import GoogLeNet, fold_inference
+    from srcfinder_torch.ops import loo, moments, trunk_fuse
+    from srcfinder_torch.parallel import shard_columns_mf
+    from srcfinder_torch.train import cli as train_cli
+    from srcfinder_torch.train import ddp
+    from srcfinder_torch.train import train as ttrain
+
+    t_phase = time.time()
+    mesh, rank_device = mg_mesh()
+    cards = torch.cuda.device_count()
+    shards = len(mesh)
+    summary = dict(cards=cards, shards=shards, mesh=[str(d) for d in mesh],
+                   note=("one card: the shards share it, so this proves the sharding and "
+                         "the gather, not a speed-up") if cards == 1 else
+                   f"{cards} cards, one shard each")
+    stats, launches = {}, {}
+    torch.cuda.empty_cache()
+
+    # --- the CMF: the scene's active cube in 256-column chunks, f32
+    active = active_range_for_library(libf)
+    abscf = torch.as_tensor(load_library(libf, active), dtype=torch.float32, device="cuda")
+    alphas = torch.as_tensor(mfmod.default_alphas(), dtype=torch.float32, device="cuda")
+    raw = open_envi(rdn).read_band_window(active[0] - 1, active[1])       # (L, AB, S)
+    x_all = torch.from_numpy(np.ascontiguousarray(raw.transpose(0, 2, 1))).to("cuda")
+    del raw
+    chunks, widths = [], []                      # padded to C columns, as the CMF pads
+    for c0 in range(0, SCENE[1], C):
+        xj = x_all[:, c0:c0 + C]
+        widths.append(xj.shape[1])
+        if xj.shape[1] < C:
+            xj = torch.cat([xj, xj.new_zeros(xj.shape[0], C - xj.shape[1], xj.shape[2])], 1)
+        chunks.append((xj.contiguous(), mfmod.valid_mask(xj).float()))
+    mfmod.matched_filter_columns(*chunks[0], abscf, alphas)  # warm-up: eigh, kernels, threads
+    shard_columns_mf(mesh, *chunks[0], abscf, alphas)
+    single = mg_timed(mesh, stats, "cmf_single", lambda: [
+        mfmod.matched_filter_columns(xj, mj, abscf, alphas) for xj, mj in chunks])
+    moments.KERNEL.reset()
+    loo.KERNEL.reset()
+    sharded = mg_timed(mesh, stats, "cmf_sharded", lambda: [
+        shard_columns_mf(mesh, xj, mj, abscf, alphas) for xj, mj in chunks])
+    launches["masked_moments"] = (moments.KERNEL.launches, f"shard_columns_mf, {shards} shards "
+                                  f"x {len(chunks)} chunks")
+    launches["loo_sweep"] = (loo.KERNEL.launches, launches["masked_moments"][1])
+    cmf_err, other_alpha = 0.0, 0
+    for got, ref, wd in zip(sharded, single, widths):     # the scene's columns
+        got, ref = (type(r)(*(f[:, :wd] if f.ndim == 2 and f.shape[0] == SCENE[0] else f[:wd]
+                              for f in r)) for r in (got, ref))
+        scale = ref.mf.abs().max().item()
+        cmf_err = max(cmf_err, (got.mf - ref.mf).abs().max().item() / scale)
+        other_alpha += len(mg_alpha_check(got, ref, TOL["float32"]))
+    summary["cmf"] = dict(chunks=len(chunks), chunk=[L, C, B, A], max_rel_err=cmf_err,
+                          tol=TOL["float32"], columns_other_alpha=other_alpha,
+                          launches={k: launches[k][0] for k in ("masked_moments", "loo_sweep")})
+    for k in ("masked_moments", "loo_sweep"):
+        if launches[k][0] != shards * len(chunks):
+            fail(f"multigpu: {k} launched {launches[k][0]} times in the sharded CMF, "
+                 f"not {shards} shards x {len(chunks)} chunks")
+    if not cmf_err <= TOL["float32"]:
+        fail(f"multigpu: sharded CMF {cmf_err:.3g} of the maximum from the single call")
+
+    # the multimodal chunk: the first chunk with two background modes
+    xm = chunks[0][0].clone()
+    xm[:SCENE[0] // 2] += MODE_OFFSET
+    mm = mfmod.valid_mask(xm).float()
+    mm_single = mg_timed(mesh, stats, "multimodal_single", lambda:
+                         mfmod.matched_filter_columns_multimodal(xm, mm, abscf, alphas, bgmodes=2))
+    moments.KERNEL.reset()
+    loo.KERNEL.reset()
+    mm_sharded = mg_timed(mesh, stats, "multimodal_sharded", lambda: shard_columns_mf(
+        mesh, xm, mm, abscf, alphas, bgmodes=2))
+    labels_differ = int((mm_sharded.labels != mm_single.labels).sum())
+    mm_err = ((mm_sharded.mf - mm_single.mf).abs().max() / mm_single.mf.abs().max()).item()
+    summary["multimodal"] = dict(labels_differ=labels_differ, max_rel_err=mm_err,
+                                 launches={"masked_moments": moments.KERNEL.launches,
+                                           "loo_sweep": loo.KERNEL.launches})
+    if labels_differ:
+        fail(f"multigpu: {labels_differ} sharded multimodal labels differ from the single call's")
+    if not mm_err <= TOL["float32"]:
+        fail(f"multigpu: sharded multimodal CMF {mm_err:.3g} of the maximum from the single call")
+    del x_all, chunks, single, sharded, xm, mm, mm_single, mm_sharded
+    torch.cuda.empty_cache()
+
+    # --- the FCN phase pass on the CMF band, trained-like weights
+    band = torch.tensor(np.asarray(open_envi(cmf_product).read_band(-1), np.float32),
+                        device="cuda")
+    x = preprocess_ch4(band, *norm_for_model("multi_64"))
+    model = tfp.load_saliency_model(cnn_weights, device="cuda")
+    tfp.fcn_phase_saliency(model, x)                          # warm-up: cuDNN's choices
+    tfp.fcn_phase_saliency(model, x, mesh=mesh)
+    fcn_single = mg_timed(mesh, stats, "fcn_single", lambda: tfp.fcn_phase_saliency(model, x))
+    fcn_sharded = mg_timed(mesh, stats, "fcn_sharded",
+                           lambda: tfp.fcn_phase_saliency(model, x, mesh=mesh))
+    fcn_diff = (fcn_sharded - fcn_single).abs().max().item()
+    summary["fcn"] = dict(band=list(band.shape), max_abs_diff=fcn_diff, tol=PATH_TOL,
+                          saliency_std=fcn_single.std().item())
+    if not fcn_diff <= PATH_TOL or not torch.isfinite(fcn_sharded).all():
+        fail(f"multigpu: sharded FCN {fcn_diff:.3g} from the single call (> {PATH_TOL:g})")
+    del band, x, model, fcn_single, fcn_sharded
+    torch.cuda.empty_cache()
+
+    # --- the exact CNN on the strip at the CLI's configuration
+    sband = torch.as_tensor(np.asarray(open_envi(strip).read_band(0), np.float32), device="cuda")
+    cnn = GoogLeNet(num_classes=2)
+    cnn.load_state_dict(load_weights(cnn_weights))
+    cnn = fold_inference(cnn.eval()).to(device="cuda", dtype=torch.bfloat16)
+    xs = preprocess_ch4(sband.to(torch.bfloat16), *norm_for_model("COVID_QC"))
+    # warm-up: a whole sharded call, so every card has loaded the kernels
+    # and packed its weights before the timed one
+    tcp.cnn_window_saliency_sharded(cnn, xs, mesh, batch=CLI_BATCH)
+    # one batch of CLI_BATCH windows on one card: the host's ms to queue it
+    # (the call returns once its launches are queued) against its device ms
+    # (CUDA events); shards are threads of one process, so the host's part
+    # of each batch holds the interpreter lock
+    fwd = tcp._WindowForward(cnn, "stage12")
+    padded = tcp.reference_pad(xs, WIN)
+    idx = torch.arange(CLI_BATCH, device="cuda")
+    origins = torch.stack([idx // xs.shape[1], idx % xs.shape[1]], dim=1)
+    fwd(padded, origins, WIN)
+    torch.cuda.synchronize()
+    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    t0 = time.perf_counter()
+    fwd(padded, origins, WIN)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[1].record()
+    torch.cuda.synchronize()
+    batch_ms = dict(host_queue_ms=host_ms, device_ms=ev[0].elapsed_time(ev[1]))
+    # the same batch on each shard at once, one thread each (run_shards):
+    # each thread's start and end (s from the common start) and its card's
+    # device ms, to show whether the shards overlap
+    from srcfinder_torch.parallel import replicate, run_shards
+    fwds = {d: tcp._WindowForward(m, "stage12") for d, m in replicate(cnn, mesh).items()}
+    inputs = {d: (padded.to(d), origins.to(d)) for d in fwds}
+    t_start = time.perf_counter()
+
+    def one(i, dev):
+        e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter() - t_start
+        e[0].record()
+        fwds[dev](*inputs[dev], WIN)
+        e[1].record()
+        torch.cuda.synchronize(dev)
+        return [t0, time.perf_counter() - t_start, e[0].elapsed_time(e[1])]
+    run_shards(mesh, one)                                  # warm-up
+    t_start = time.perf_counter()
+    batch_ms["concurrent_start_end_s_device_ms"] = run_shards(mesh, one)
+    del fwds, inputs
+    cnn_single = mg_timed(mesh, stats, "exact_cnn_single", lambda: tcp.cnn_window_saliency(
+        cnn, xs, batch=CLI_BATCH, trunk="stage12"))
+    trunk_fuse.KERNEL.reset()
+    cnn_sharded = mg_timed(mesh, stats, "exact_cnn_sharded", lambda: tcp.cnn_window_saliency_sharded(
+        cnn, xs, mesh, batch=CLI_BATCH, trunk="stage12"))
+    counts = {k: trunk_fuse.launches(k) for k in TRUNK_KERNELS}
+    for k in ROUTE_KERNELS["stage12"]:
+        launches[k] = (counts[k], f"cnn_window_saliency_sharded, {shards} shards, "
+                                  f"bf16 batch {CLI_BATCH}")
+    equal = bool(torch.equal(cnn_sharded, cnn_single))
+    summary["exact_cnn"] = dict(windows=int(xs.numel()), batch=CLI_BATCH, bit_equal=equal,
+                                launches=counts, one_batch=batch_ms)
+    launched = sorted(k for k, c in counts.items() if c > 0)
+    if launched != sorted(ROUTE_KERNELS["stage12"]):
+        fail(f"multigpu: the sharded exact CNN launched {launched}")
+    if not equal:
+        fail(f"multigpu: the sharded exact CNN differs from the single call by "
+             f"{(cnn_sharded - cnn_single).abs().max().item():.3g}")
+    del sband, cnn, xs, cnn_single, cnn_sharded, fwd, padded
+    torch.cuda.empty_cache()
+
+    # --- data-parallel training: MG_RANKS ranks, phase 4e's campaign
+    root = os.path.join(workdir, "mg_train")
+    write_campaign(root)
+    dpdir = os.path.join(workdir, "mg_dp")
+    os.makedirs(dpdir)
+    devices = ddp.rank_devices(rank_device, MG_RANKS)
+    t0 = time.time()
+    backend = ddp.spawn(mg_dp_worker, MG_RANKS, rank_device, os.path.join(dpdir, "rdv"),
+                        args=(root, dpdir))
+    worker_s = time.time() - t0
+    # the one-process f64 step on the same global batch
+    from srcfinder_torch.train import sam
+    xb, yb, w = mg_first_batch(root)
+    ref = GoogLeNet(num_classes=2, aux_logits=True, dropout=0.0, dropout_aux=0.0,
+                    generator=torch.Generator().manual_seed(0)).double().to("cuda").train()
+    start = {k: v.clone() for k, v in ref.state_dict().items()}
+    opt = sam.make_inner_optimizer(ref.parameters())
+    ref_loss = float(sam.make_sam_train_step(ref, opt, torch.tensor(
+        w, dtype=torch.float64, device="cuda"))(xb.cuda().double(), yb.cuda(), 1e-4))
+    got = np.load(os.path.join(dpdir, "dp_f64.npz"))
+    worst = []
+    for k, v in ref.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        a, b = torch.from_numpy(got[k]), v.cpu()
+        if "running" not in k:
+            a, b = a - start[k].cpu(), b - start[k].cpu()
+        worst.append((_rel_l2(a, b), k))
+    for k, p in ref.named_parameters():
+        worst.append((_rel_l2(torch.from_numpy(got[f"momentum:{k}"]),
+                              opt.state[p]["momentum_buffer"]), f"momentum:{k}"))
+    worst.sort(reverse=True)
+    loss_err = abs(float(got["loss"]) - ref_loss)
+    times = []
+    for r in range(MG_RANKS):
+        with open(os.path.join(dpdir, f"dp_ms_{r}.json")) as f:
+            times.append(json.load(f))
+    dp_ms = [t["dp_sam_step_ms"] for t in times]
+    local_ms = [t["local_sam_step_ms"] for t in times]
+    host_ms = {k: [t[f"{k}_sam_host_ms"] for t in times] for k in ("dp", "local")}
+    # the CLI, one epoch, data-parallel
+    captured = {}
+    run_experiment = ttrain.train_experiment
+
+    def keep(cfg, progress=print):
+        captured["out"] = run_experiment(cfg, progress)
+        return captured["out"]
+
+    ttrain.train_experiment = keep
+    try:
+        t0 = time.time()
+        rc = train_cli.main([root, TRAIN_CAMPAIGN, "--epochs", "1", "--augment", "augA",
+                             "--devices", str(MG_RANKS), "--device", rank_device,
+                             "--outroot", os.path.join(workdir, "mg_train_out")])
+        cli_s = time.time() - t0
+    finally:
+        ttrain.train_experiment = run_experiment
+    _, outdir, _ = captured["out"]
+    listing = sorted(os.listdir(outdir))
+    weights = sorted(os.listdir(os.path.join(outdir, "weights")))
+    with open(os.path.join(outdir, "batch_losses.csv")) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    summary["ddp"] = dict(
+        ranks=MG_RANKS, devices=[str(d) for d in devices], backend=backend,
+        f64_step=dict(loss=ref_loss, loss_abs_err=loss_err, tol=MG_DP_TOL,
+                      worst_tensors=worst[:4], tensors=len(worst)),
+        f32_sam_step_ms_per_rank=dp_ms, f32_local_sam_step_ms_per_rank=local_ms,
+        reduction_share=[(d - l) / d for d, l in zip(dp_ms, local_ms)],
+        f32_sam_host_ms_per_rank=host_ms["dp"], f32_local_sam_host_ms_per_rank=host_ms["local"],
+        dp_step_host_top_ms=times[0]["dp_step_host_top"],
+        allreduce_8KB_us=[t["allreduce_8KB_us"] for t in times],
+        allreduce_28MB_us=[t["allreduce_28MB_us"] for t in times],
+        batchnorm_layers=times[0]["batchnorm_layers"],
+        rows_per_rank=[t["rows"] for t in times],
+        rank_peak_mem_bytes=[t["peak_mem_bytes"] for t in times],
+        worker_s=worker_s, cli_s=cli_s, cli_files=listing, cli_weights=weights,
+        cli_batch_losses=losses)
+    shutil.rmtree(root, ignore_errors=True)
+    summary["stats"] = stats
+    summary["phase_s"] = time.time() - t_phase
+    print(json.dumps({"multigpu": summary}), flush=True)
+    if backend != ("nccl" if cards >= 2 else "gloo"):
+        fail(f"multigpu: the trainer ran {backend} on {cards} cards")
+    if not worst[0][0] <= MG_DP_TOL or not loss_err <= MG_LOSS_ATOL:
+        fail(f"multigpu: the data-parallel f64 step is {worst[0]} from the one-process "
+             f"step (loss {loss_err:.3g})")
+    if rc != 0 or listing != ["batch_losses.csv", "epoch_losses.csv", "epoch_times.csv",
+                              "metrics.json", "val_losses.csv", "weights"]:
+        fail(f"multigpu: train.cli --devices {MG_RANKS} wrote {listing} (rc {rc})")
+    if len(weights) != 1 or not weights[0].startswith("final_"):
+        fail(f"multigpu: train.cli --devices {MG_RANKS} wrote weights {weights}")
+    if len(losses) != TRAIN_ROWS // TRAIN_BATCH or not np.isfinite(losses).all():
+        fail(f"multigpu: train.cli --devices {MG_RANKS} batch losses {losses}")
+    return launches
+
+
 def cmf_times(tree):
     """Same-call A/B of the CMF kernels: ``python3 chip_smoke.py --cmf-times
     TREE`` times masked_moments and loo_sweep of TREE's srcfinder_torch
@@ -2639,11 +3110,69 @@ def trunk_times(tree):
     print(json.dumps({"trunk_times": out, "tree": tree, "gpu": nvidia_smi_line()}))
 
 
+def train_times(tree):
+    """Same-call A/B of the one-card training step: ``python3 chip_smoke.py
+    --train-times TREE`` times the SAM step of TREE's srcfinder_torch (the
+    trainer's network, seed 0, at srcfinder-train's batch and crop) on a
+    seeded batch with step_ms and prints one JSON line. Run it on two trees
+    in turns within one call (old, new, new, old)."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from srcfinder_torch.device import resolve_device
+    from srcfinder_torch.train import sam
+    from srcfinder_torch.train import train as ttrain
+    if not ttrain.__file__.startswith(tree):
+        fail(f"srcfinder_torch was not imported from {tree}")
+    resolve_device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn(TRAIN_BATCH, 1, TRAIN_SIDE, TRAIN_SIDE, generator=gen, device="cuda")
+    y = torch.arange(TRAIN_BATCH, device="cuda") % 2
+    model = ttrain.make_model(0, "cuda")
+    step = sam.make_sam_train_step(model, sam.make_inner_optimizer(model.parameters()),
+                                   torch.tensor([1.0, 2.0], device="cuda"))
+    ms, host = step_ms(step, x, y)
+    print(json.dumps({"train_times": dict(sam_step_ms=ms, sam_host_ms=host), "tree": tree,
+                      "gpu": nvidia_smi_line()}))
+
+
+def multigpu_only():
+    """``--multigpu``: phase 9 alone, after the build, on the main path's
+    scene (its CMF and FCN run once through run_flightline)."""
+    sys.path.insert(0, HERE)
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    smi = nvidia_smi_line()
+    print(smi)
+    from srcfinder_torch.flow.pipeline_cli import run_flightline
+    from srcfinder_torch.ops import build, loo, moments, trunk_fuse
+    build.build_all((moments.KERNEL, loo.KERNEL, trunk_fuse.KERNEL))
+    workdir = os.path.join(HERE, "chip_smoke_work")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        rdn, libf = write_scene(workdir, torch.Generator(device="cuda").manual_seed(2801))
+        prods = run_flightline(rdn, libf, write_weights(workdir), os.path.join(workdir, "out"),
+                               prob_thr=0.0, device="cuda", progress=lambda msg: None)
+        launches = phase_multigpu(workdir, rdn, libf, prods["cmf"],
+                                  write_strip(workdir, prods["cmf"]), write_cnn_weights(workdir))
+        print(json.dumps({"sharded_launches": launches, "gpu": smi}))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--cmf-times":
         return cmf_times(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--trunk-times":
         return trunk_times(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-times":
+        return train_times(sys.argv[2])
+    if len(sys.argv) == 2 and sys.argv[1] == "--multigpu":
+        return multigpu_only()
     if not os.path.isdir(os.path.join(HERE, "srcfinder_torch")):
         fail("srcfinder_torch/ is not next to chip_smoke.py")
     sys.path.insert(0, HERE)
@@ -2690,6 +3219,7 @@ def main():
         checks.update(phase_trunk_kernels(strip, cnn_weights))
         launches.update(phase_exact_cnn(workdir, strip, cnn_weights))
         phase_fcn_paths(workdir, cmf_product, cnn_weights)
+        mg_launches = phase_multigpu(workdir, rdn, libf, cmf_product, strip, cnn_weights)
         for f in (rdn, rdn + ".hdr"):          # bound the disk use
             os.remove(f)
         checks.update(phase_long_flightline(workdir, libf, write_weights(workdir)))
@@ -2749,6 +3279,10 @@ def main():
             # the launches of the winds run (phase 4c), from zero
             entry["winds"] = dict(launches=winds_launches[kname],
                                   launches_in="pipeline_cli --watch --once --winds")
+        if kname in mg_launches:
+            # the launches of the sharded run (phase 9), from zero
+            n, run = mg_launches[kname]
+            entry["sharded"] = dict(launches=n, launches_in=run)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -25,7 +25,7 @@ import torch
 
 from ..ops.moments import masked_moments
 
-__all__ = ["masked_pca_project", "kmeans_columns"]
+__all__ = ["masked_pca_project", "kmeans_columns", "kpp_uniforms"]
 
 
 def masked_pca_project(x, m, pcadim: int):
@@ -48,29 +48,37 @@ def _take_rows(z, idx):
     return z[idx, cols]
 
 
-def _kpp_init(z, m, k: int, gen):
+def kpp_uniforms(L: int, C: int, k: int, seed: int, dtype, device):
+    """The uniforms behind the k-means++ seeds of every column: (k, L, C),
+    drawn in k (L, C) draws from a ``torch.Generator`` on ``device`` seeded
+    by ``seed``. Drawn for all columns at once, so a column-sharded run can
+    hand each shard its columns and seed as the single-device run does."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.stack([torch.rand((L, C), generator=gen, dtype=dtype, device=device)
+                        for _ in range(k)])
+
+
+def _kpp_init(z, m, k: int, uniforms):
     """k-means++ seeds of every column, by gumbel-max sampling over that
     column's valid rows: the first uniformly, each next one with weight
     the squared distance to the column's nearest seed so far.
 
-    z: (L, C, P), m: (L, C), gen: a torch.Generator on z's device.
+    z: (L, C, P), m: (L, C), uniforms: (k, L, C) (:func:`kpp_uniforms`).
     Returns the seeds' row indices (C, k).
     """
-    L, C, _ = z.shape
     tiny = torch.finfo(z.dtype).tiny
 
-    def gumbel():
-        u = torch.rand((L, C), generator=gen, dtype=z.dtype, device=z.device)
-        return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    def gumbel(i):
+        return -torch.log(-torch.log(torch.clamp(uniforms[i], min=tiny)))
 
     valid = m > 0
     neg_inf = torch.full((), -math.inf, dtype=z.dtype, device=z.device)
-    idx = [torch.argmax(torch.where(valid, gumbel(), neg_inf), dim=0)]     # (C,)
-    for _ in range(1, k):
+    idx = [torch.argmax(torch.where(valid, gumbel(0), neg_inf), dim=0)]     # (C,)
+    for i in range(1, k):
         cent = _take_rows(z, torch.stack(idx, dim=1))                       # (C, K', P)
         d2 = ((z[:, :, None, :] - cent[None]) ** 2).sum(dim=-1).min(dim=2).values
         logits = torch.where(valid, torch.log(torch.clamp(d2, min=1e-30)), neg_inf)
-        idx.append(torch.argmax(logits + gumbel(), dim=0))
+        idx.append(torch.argmax(logits + gumbel(i), dim=0))
     return torch.stack(idx, dim=1)
 
 
@@ -82,19 +90,21 @@ def _sq_dist(z, cent):
             + (cent * cent).sum(dim=-1)[None])
 
 
-def kmeans_columns(z, m, k: int, iters: int = 25, seed: int = 0, init_index=None):
+def kmeans_columns(z, m, k: int, iters: int = 25, seed: int = 0, init_index=None,
+                   uniforms=None):
     """Lloyd's k-means per column on the masked points.
 
     z: (L, C, P), m: (L, C). ``init_index``: optional (C, k) row indices
-    of the starting centroids; None draws k-means++ seeds from a
-    ``torch.Generator`` seeded by ``seed``. A cluster left empty keeps
-    its old centroid. Returns labels (L, C) int32 (arbitrary where ~m)
-    and centroids (C, k, P).
+    of the starting centroids; None draws k-means++ seeds from
+    ``uniforms`` (k, L, C), by default :func:`kpp_uniforms` with ``seed``
+    on z's device. A cluster left empty keeps its old centroid. Returns
+    labels (L, C) int32 (arbitrary where ~m) and centroids (C, k, P).
     """
     m = m.to(z.dtype)
     if init_index is None:
-        gen = torch.Generator(device=z.device).manual_seed(seed)
-        init_index = _kpp_init(z, m, k, gen)
+        if uniforms is None:
+            uniforms = kpp_uniforms(z.shape[0], z.shape[1], k, seed, z.dtype, z.device)
+        init_index = _kpp_init(z, m, k, uniforms)
     cent = _take_rows(z, torch.as_tensor(init_index, device=z.device).long())
     for _ in range(iters):
         lab = torch.argmin(_sq_dist(z, cent), dim=2)                # (L, C)

@@ -232,11 +232,12 @@ def matched_filter_columns_multimodal(x, m, abscf, alphas, bgmodes: int,
                                       model: str = "looshrinkage",
                                       reflectance: bool = False,
                                       kmeans_iters: int = 25, seed: int = 0,
-                                      init_index=None) -> MFMultimodalResult:
+                                      init_index=None, uniforms=None) -> MFMultimodalResult:
     """Multimodal background MF: PCA + k-means partitions of each column,
     one covariance model per (column, mode) (reference:
     robust_mf.py:306-397). ``init_index`` (C, K) seeds k-means with those
-    rows instead of k-means++ (see :func:`.kmeans.kmeans_columns`).
+    rows instead of k-means++, and ``uniforms`` (K, L, C) gives k-means++
+    its draws in place of ``seed``'s (see :func:`.kmeans.kmeans_columns`).
 
     Modes with fewer than ``int((B - 1) * 1.2)`` samples are rejected when
     ``reject`` is set (robust_mf.py:199-200, :321-324) and their pixels
@@ -262,7 +263,7 @@ def matched_filter_columns_multimodal(x, m, abscf, alphas, bgmodes: int,
     B = x.shape[2]
     z = masked_pca_project(x, m, pcadim)
     labels, _ = kmeans_columns(z, m, bgmodes, iters=kmeans_iters, seed=seed,
-                               init_index=init_index)
+                               init_index=init_index, uniforms=uniforms)
 
     # int((active[1]-active[0]) * 1.2) in the reference: one less than the
     # band count (robust_mf.py:199-200)

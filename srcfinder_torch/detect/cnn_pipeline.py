@@ -42,8 +42,8 @@ from ..ops.trunk_fuse import (fused_stage12_gather, pack_params, stage12_params,
                               trunk_s23, trunk_s45, trunk_segment_params)
 from .preprocess import norm_for_model, preprocess_ch4
 
-__all__ = ["reference_pad", "cnn_window_saliency", "cnn_fast_saliency",
-           "cnn_saliency_image", "TRUNKS"]
+__all__ = ["reference_pad", "cnn_window_saliency", "cnn_window_saliency_sharded",
+           "cnn_fast_saliency", "cnn_saliency_image", "TRUNKS"]
 
 TRUNKS = ("segments", "stage12", "plain")
 
@@ -99,17 +99,63 @@ def cnn_window_saliency(model: GoogLeNet, img, dim: int = 256, batch: int = 512,
     copies of the scene's last window, whose outputs are discarded.
     """
     h, w = img.shape
-    padded = reference_pad(img, dim)
     n = h * w
-    forward = _WindowForward(model, trunk)
     out = torch.empty(n, dtype=torch.float32, device=img.device)
-    for i in range(0, n, batch):
-        take = min(batch, n - i)
-        idx = torch.arange(i, i + batch, device=img.device).clamp_(max=n - 1)
-        out[i:i + take] = forward(padded, torch.stack([idx // w, idx % w], dim=1), dim)[:take]
+    _window_range(_WindowForward(model, trunk), reference_pad(img, dim), w, n, 0, n,
+                  dim, batch, out, progress)
+    return out.reshape(h, w)
+
+
+def _window_range(forward, padded, w: int, n: int, i0: int, i1: int, dim: int,
+                  batch: int, out, progress=None):
+    """Windows ``[i0, i1)`` of the scene's ``n`` (row-major over a width
+    ``w``) through ``forward`` in batches of ``batch`` from ``i0``, into
+    ``out[0:i1 - i0]``. A short last batch is padded with copies of the
+    scene's last window, whose outputs are discarded."""
+    for i in range(i0, i1, batch):
+        take = min(batch, i1 - i)
+        idx = torch.arange(i, i + batch, device=padded.device).clamp_(max=n - 1)
+        out[i - i0:i - i0 + take] = forward(
+            padded, torch.stack([idx // w, idx % w], dim=1), dim)[:take]
         if progress is not None:
             progress(i + take, n)
-    return out.reshape(h, w)
+
+
+@torch.inference_mode()
+def cnn_window_saliency_sharded(model: GoogLeNet, img, mesh, dim: int = 256,
+                                batch: int = 512, trunk: str = "stage12"):
+    """:func:`cnn_window_saliency` with the windows split over ``mesh`` (a
+    list of devices, :mod:`srcfinder_torch.parallel`): the JAX package's
+    ``cnn_window_saliency_sharded``, in place of the reference's
+    ``nn.DataParallel`` on the exact path (cnn_pred_pipeline.py:113-116).
+
+    Each device takes a contiguous range of the row-major windows, whole
+    batches of ``batch`` (the batches split as ``torch.tensor_split``
+    does), so every batch is the one the single-device call runs, the
+    scene's last window padding the last. The model, the padded scene and
+    each trunk route's packed kernel parameters replicate, one set per
+    device; each shard runs :func:`_window_range`. Per-window outputs equal
+    the single-device call's. Returns (H, W) f32 on ``img``'s device.
+    """
+    from ..parallel.mesh import as_mesh, batch_ranges, gather, replicate, run_shards
+
+    mesh = as_mesh(mesh)
+    h, w = img.shape
+    n = h * w
+    nb = -(-n // batch)
+    ranges = [(b0 * batch, min(b1 * batch, n)) for b0, b1 in batch_ranges(nb, len(mesh))
+              if b1 > b0]
+    models = replicate(model, mesh)
+    forwards = replicate(lambda dev: _WindowForward(models[dev], trunk), mesh)
+    padded = replicate(reference_pad(img, dim), mesh)
+
+    def shard(k, dev):
+        i0, i1 = ranges[k]
+        out = torch.empty(i1 - i0, dtype=torch.float32, device=dev)
+        _window_range(forwards[dev], padded[dev], w, n, i0, i1, dim, batch, out)
+        return out
+
+    return gather(run_shards(mesh, shard, len(ranges)), img.device).reshape(h, w)
 
 
 #: shift phases per model call in the fast mode

@@ -71,6 +71,12 @@ MAX_DILATED_CANVAS_PX = 2_500_000
 #: Parent maps per step of the scan layout at stages 1, 2, 3 and 4+5.
 SCAN_CHUNKS = (2, 4, 8, 1)
 
+#: Level-3 maps per step of each shard's stages 4+5 under a mesh: a
+#: shard's working set is then that of 4 maps, whatever its share, so
+#: shards that share a card fit together (four shards of a 2801 x 598
+#: band peaked at 55.6 GB on one H100 with each shard's 16 maps at once).
+MESH_CHUNK45 = 4
+
 
 def unblocked_limits():
     """(max lines, max pixels) past which the phase path runs blocked:
@@ -131,20 +137,22 @@ def fcn_shift_saliency(model: GoogLeNet, img, scale: int = 32,
 
     img: (H, W) already clamp+normalized tensor. Returns (H, W) saliency.
     """
-    h0, w0 = img.shape
     canvas = _canvas(img, scale)
+    nshift = scale * scale
+    outs = [_shift_probs(model, canvas, scale, range(i, min(i + batch, nshift)))
+            for i in range(0, nshift, batch)]
+    return stitch_stack(tuple(img.shape), torch.cat(outs, dim=0), scale)
+
+
+def _shift_probs(model: GoogLeNet, canvas, scale: int, shifts):
+    """Class-1 probability maps (len(shifts), h, w) of the shift views
+    ``shifts`` (indices top*scale + left) of ``canvas``, as one batch."""
     hp = canvas.shape[0] - scale
     wp = canvas.shape[1] - scale
-    nshift = scale * scale
-    outs = []
-    for i in range(0, nshift, batch):
-        views = torch.stack([canvas[scale - t: scale - t + hp,
-                                    scale - l: scale - l + wp]
-                             for t, l in (divmod(k, scale)
-                                          for k in range(i, min(i + batch, nshift)))])
-        feats = model(views[:, None], features_only=True)
-        outs.append(torch.softmax(fc_logits(model, feats), dim=-1)[..., 1])
-    return stitch_stack((h0, w0), torch.cat(outs, dim=0), scale)
+    views = torch.stack([canvas[scale - t: scale - t + hp, scale - l: scale - l + wp]
+                         for t, l in (divmod(k, scale) for k in shifts)])
+    feats = model(views[:, None], features_only=True)
+    return torch.softmax(fc_logits(model, feats), dim=-1)[..., 1]
 
 
 def _background_constants(model: GoogLeNet, dtype, device):
@@ -284,9 +292,49 @@ def _phase_probs_scan(model: GoogLeNet, canvas, scale: int, chunks):
     return probs.reshape((S, scale * scale) + tuple(probs.shape[1:]))[:, order]
 
 
+def _phase_saliency_mesh(model: GoogLeNet, img, scale: int, mesh):
+    """The phase pass with its phase batch split over ``mesh``: the JAX
+    package's mesh branch, stage by stage (stages 1-3 through
+    :func:`_stage_all_phases`, then :func:`_stage45_probs`), each stage's
+    leading ``4^level`` maps cut into contiguous shards once the shard
+    count divides them and run whole on the first device until then (the
+    JAX package replicates them); each shard steps over its level-3 maps
+    :data:`MESH_CHUNK45` at a time at stages 4+5. One model replica and
+    one set of background constants per device; the stitch runs on
+    ``img``'s device."""
+    from ..parallel.mesh import as_mesh, gather, replicate, run_shards
+
+    mesh = as_mesh(mesh)
+    n = len(mesh)
+    models = replicate(model, mesh)
+    fills = replicate(lambda dev: _background_constants(models[dev], img.dtype, dev), mesh)
+    canvas = _canvas(img, scale)
+    hp = canvas.shape[0] - scale
+    wp = canvas.shape[1] - scale
+    feats = canvas[None, None, scale:scale + hp, scale:scale + wp]
+
+    def stage(run, feats):
+        """``run(model, fills, maps)`` over the maps of ``feats``, sharded
+        when the mesh divides them."""
+        if feats.shape[0] % n:
+            dev = mesh[0]
+            return run(models[dev], fills[dev], feats.to(dev))
+        k = feats.shape[0] // n
+        return gather(run_shards(mesh, lambda i, dev: run(
+            models[dev], fills[dev], feats[i * k:(i + 1) * k].to(dev))), mesh[0])
+
+    for level in (1, 2, 3):
+        feats = stage(lambda m, f, maps, s=level: _stage_all_phases(
+            m, maps, f[s - 1], s, maps.shape[0]), feats)
+    probs = stage(lambda m, f, maps: _stage45_probs(m, maps, f[3], f[4], MESH_CHUNK45),
+                  feats).to(img.device)
+    order = torch.as_tensor(_phase_order(scale), device=probs.device)
+    return stitch_stack(tuple(img.shape), probs[order], scale)
+
+
 @torch.inference_mode()
 def fcn_phase_saliency(model: GoogLeNet, img, scale: int = 32,
-                       layout: str = "wide"):
+                       layout: str = "wide", mesh=None):
     """Phase-deduplicated shift-and-stitch: exact fast path.
 
     Exactness: with the image embedded in a zero canvas wide enough for
@@ -304,10 +352,16 @@ def fcn_phase_saliency(model: GoogLeNet, img, scale: int = 32,
     (:data:`SCAN_CHUNKS` parent maps per step at stages 1-3 and 4+5); the two
     evaluate the same stage applies with the same fills.
 
+    ``mesh``: a list of devices (:mod:`srcfinder_torch.parallel`); the phase
+    batch of each stage is split over it once its size divides the
+    stage's maps (:func:`_phase_saliency_mesh`; ``layout`` is then unused).
+
     Requires ``scale`` == 32 (the trunk's output stride).
     """
     if scale != 32:
         raise ValueError("phase-dedup path requires scale == 32")
+    if mesh is not None:
+        return _phase_saliency_mesh(model, img, scale, mesh)
     if layout == "wide":
         return _phase_saliency_fused_wide(model, img, scale)
     if layout != "scan":
@@ -336,14 +390,14 @@ def fcn_phase_saliency_batch(model: GoogLeNet, imgs, scale: int = 32):
 
 @torch.inference_mode()
 def fcn_phase_saliency_blocked(model: GoogLeNet, img, scale: int = 32,
-                               block: int | None = None):
+                               block: int | None = None, mesh=None):
     """Long-flightline phase saliency: windows of ``block + 2*halo`` input
     lines (``halo`` = :data:`TRUNK_HALO`), each through the wide-layout
     :func:`fcn_phase_saliency`, keeping each window's
     central ``block`` rows; device memory stays at one window.
     ``block=None`` sizes the window to :data:`WINDOW_BUDGET_PX` for the
     scene's width (:func:`_auto_block`). A scene no longer than one
-    window runs unblocked.
+    window runs unblocked. ``mesh`` is passed on to each window.
 
     Exactness: every kept row is at least ``halo`` lines from any
     artificial cut, and ``halo`` covers the trunk's receptive field plus
@@ -363,7 +417,7 @@ def fcn_phase_saliency_blocked(model: GoogLeNet, img, scale: int = 32,
         raise ValueError("block must be a multiple of scale")
     win = block + 2 * halo
     if h0 <= win:
-        return fcn_phase_saliency(model, img, scale)
+        return fcn_phase_saliency(model, img, scale, mesh=mesh)
     pad0 = (-h0) % scale
     if pad0:
         img = F.pad(img, (0, 0, 0, pad0))
@@ -372,7 +426,7 @@ def fcn_phase_saliency_blocked(model: GoogLeNet, img, scale: int = 32,
     for r0 in range(0, hp, block):
         n = min(block, hp - r0)
         s = max(0, min(r0 - halo, hp - win))
-        sal = fcn_phase_saliency(model, img[s:s + win], scale)
+        sal = fcn_phase_saliency(model, img[s:s + win], scale, mesh=mesh)
         if out is None:
             out = sal.new_empty((hp, w0))
         out[r0:r0 + n] = sal[r0 - s:r0 - s + n]

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["GoogLeNet", "InceptionAux", "BatchNorm2d", "frozen_stats",
+__all__ = ["GoogLeNet", "InceptionAux", "BatchNorm2d", "frozen_stats", "cross_replica",
            "CAMPAIGN_NORM", "fuse_state_dict", "fold_state_dict", "fold_inference"]
 
 #: per-campaign normalization constants
@@ -77,6 +77,26 @@ def _dilated_maxpool(x, window: int, d: int, symmetric: bool = False):
     return F.max_pool2d(x, window, stride=1, dilation=d)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group's ranks, differentiable: the gradient of
+    each rank's input is the sum of every rank's output gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``torch.nn.BatchNorm2d`` with flax's running-statistics rule.
 
@@ -88,13 +108,28 @@ class BatchNorm2d(nn.BatchNorm2d):
     after it leaves ``0.9 ra + 0.1 var_biased``. Normalisation (batch
     statistics in training, running ones in eval) is torch's own.
     ``update_stats = False`` normalises with batch statistics and leaves
-    the running ones alone (:func:`frozen_stats`)."""
+    the running ones alone (:func:`frozen_stats`).
+
+    ``process_group``: a ``torch.distributed`` group over whose ranks the
+    batch is split (data-parallel training, :func:`cross_replica`). With
+    more than one rank, training-mode statistics are those of the global
+    batch, as the JAX package's GSPMD step computes them: one differentiable
+    all-reduce of each rank's per-channel sums of x and x^2
+    (:class:`_AllReduceSum`: the backward reduces too), mean and biased
+    variance E[x^2] - E[x]^2 over all ranks' rows (flax's fast variance),
+    the running statistics updated by flax's rule with the global count;
+    under :func:`frozen_stats` the same global statistics, no update."""
 
     update_stats = True
+    process_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            import torch.distributed as dist
+            if dist.get_world_size(self.process_group) > 1:
+                return self._global_batch_norm(x, dist.get_world_size(self.process_group))
         if not self.update_stats:
             return F.batch_norm(x, None, None, self.weight, self.bias, True,
                                 0.0, self.eps)
@@ -107,6 +142,41 @@ class BatchNorm2d(nn.BatchNorm2d):
             torch.mul(var, (n - 1) / n, out=self.running_var)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _global_batch_norm(self, x, world: int):
+        """Training-mode normalisation by the statistics of the batch split
+        over ``self.process_group``'s ``world`` ranks (equal shards)."""
+        c = x.shape[1]
+        sums = _AllReduceSum.apply(torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]),
+                                   self.process_group)
+        n = world * (x.numel() // c)
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:] / n - mean * mean, min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+                self.num_batches_tracked.add_(1)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
+
+
+@contextmanager
+def cross_replica(model: nn.Module, group):
+    """Inside, every :class:`BatchNorm2d` of ``model`` normalises by the
+    statistics of the batch split over ``group``'s ranks (None: each rank's
+    own batch)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    before = [m.process_group for m in bns]
+    for m in bns:
+        m.process_group = group
+    try:
+        yield model
+    finally:
+        for m, g in zip(bns, before):
+            m.process_group = g
 
 
 @contextmanager

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 __all__ = ["CudaKernel", "BUILD_DIR", "build_all"]
 
@@ -50,12 +51,16 @@ class CudaKernel:
     argument types (the return type is always ``int``: the launch's
     ``cudaError_t``). ``launches`` counts successful calls of
     :meth:`launch`, and ``counts`` the same per entry point; callers that
-    want to attribute launches to one run :meth:`reset` them first.
+    want to attribute launches to one run :meth:`reset` them first. The
+    counts are exact when several threads launch at once (the sharded
+    runs of :mod:`srcfinder_torch.parallel`): each launch counts under a
+    lock.
     """
 
     def __init__(self, source: str, signatures: dict):
         self.source = os.path.join(_CSRC, source)
         self.signatures = signatures
+        self._lock = threading.Lock()
         self.reset()
         self._lib = None
 
@@ -114,14 +119,17 @@ class CudaKernel:
             return f.read()
 
     def load(self):
-        """The loaded library, built first if needed."""
+        """The loaded library, built first if needed (once, whichever
+        thread asks first)."""
         if self._lib is None:
-            self.finish_build(self.start_build())
-            lib = ctypes.CDLL(self.lib_path())
-            for fn, argtypes in self.signatures.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            self._lib = lib
+            with self._lock:
+                if self._lib is None:
+                    self.finish_build(self.start_build())
+                    lib = ctypes.CDLL(self.lib_path())
+                    for fn, argtypes in self.signatures.items():
+                        getattr(lib, fn).argtypes = argtypes
+                        getattr(lib, fn).restype = ctypes.c_int
+                    self._lib = lib
         return self._lib
 
     def launch(self, fn: str, *args) -> None:
@@ -129,8 +137,9 @@ class CudaKernel:
         rc = getattr(self.load(), fn)(*args)
         if rc != 0:
             raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
-        self.launches += 1
-        self.counts[fn] += 1
+        with self._lock:
+            self.launches += 1
+            self.counts[fn] += 1
 
 
 def build_all(kernels) -> None:

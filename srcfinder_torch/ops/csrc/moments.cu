@@ -369,13 +369,10 @@ int launch(const T* x, const T* m, T* n, T* mu, T* S, T* psum, T* pcnt, T* ptri,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   auto scatter = vec ? moments_scatter_kernel<T, true> : moments_scatter_kernel<T, false>;
-  // once per process and instance: allow up to a block's whole shared memory
-  static const cudaError_t attr[2] = {
-      cudaFuncSetAttribute(moments_scatter_kernel<T, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax),
-      cudaFuncSetAttribute(moments_scatter_kernel<T, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax)};
-  err = attr[vec ? 1 : 0];
+  // allow up to a block's whole shared memory; the attribute belongs to the
+  // current device's context, so it is set at every launch (a process may
+  // launch on several cards)
+  err = cudaFuncSetAttribute(scatter, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (err != cudaSuccess) return static_cast<int>(err);
   scatter<<<dim3(splits, C, tgroups), tpb * kGroups, smem, s>>>(
       x, m, psum, pcnt, n, mu, ptri, L, B, lines, tl, kstride, splits, tpb, st);

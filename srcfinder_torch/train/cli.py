@@ -6,8 +6,10 @@ usage: python -m srcfinder_torch.train.cli DATAROOT CAMPAIGN [--lr
        --seed --resume --start-epoch --devices --device]
 
 The JAX package's ``srcfinder-train`` arguments, plus ``--device``
-(``cuda``, the default, or ``cpu``). ``--devices N`` with N > 1 (data-
-parallel training) is not ported yet and exits with an error.
+(``cuda``, the default, or ``cpu``). ``--devices N`` trains data-parallel
+over N ranks: one card each with ``--device cuda`` (NCCL; fewer cards
+raise), all on the CPU (``--device cpu``) or on one card (``--device
+cuda:0``) over gloo.
 """
 
 from __future__ import annotations
@@ -41,9 +43,10 @@ def build_parser():
     p.add_argument("--start-epoch", type=int, default=0,
                    help="epoch to continue the LR schedule from")
     p.add_argument("--devices", type=int, default=None,
-                   help="data-parallel over N cards: not ported yet, N > 1 "
-                        "raises")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+                   help="data-parallel over N ranks (one card each with "
+                        "--device cuda)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default), cuda:I (every rank on card I) or cpu")
     return p
 
 

@@ -9,7 +9,8 @@ reports (:434-510).
 Checkpoints are the JAX package's ``.npz`` layout (``params/...``,
 ``batch_stats/...``, aux heads included), so a checkpoint of either package
 resumes in the other. The threshold search and the report are numpy
-(no scikit-learn).
+(no scikit-learn). ``TrainConfig(devices=N)`` trains data-parallel over N
+ranks (:mod:`.ddp`).
 """
 
 from __future__ import annotations
@@ -48,12 +49,17 @@ class TrainConfig:
         resumes by loading the every-5-epochs torch.save,
         experiment_script_all.py:406-408). ``start_epoch`` continues the
         StepLR schedule from that epoch. ``device``: where the model and
-        its steps run. ``devices`` > 1 (data-parallel training over
-        several cards) is not ported yet and raises."""
-        if devices is not None and devices > 1:
-            raise NotImplementedError(
-                f"devices={devices}: data-parallel training over several cards "
-                "is not ported yet; train on one card (devices=None or 1)")
+        its steps run.
+
+        ``devices`` > 1: data-parallel over that many ranks (:mod:`.ddp`),
+        each on its own card for ``device="cuda"`` (NCCL; raises with fewer
+        cards), all on the CPU or on one card for ``"cpu"`` or ``"cuda:0"``
+        (gloo). Each step is the global batch's, as the JAX package's
+        GSPMD step: its rows split over the ranks, BatchNorm over the
+        global batch, the global weighted loss. A batch the ranks do not
+        divide (the short last one) runs whole on every rank. Dropout masks
+        come from a generator seeded with ``seed + rank``. Rank 0 alone
+        evaluates and writes the files."""
         self.__dict__.update(locals())
         del self.__dict__["self"]
 
@@ -216,7 +222,10 @@ def train_experiment(cfg: TrainConfig, progress=print):
     Besides the JAX package's files, ``epoch_times.csv`` gives each epoch's
     batches, host data seconds (tile reads, crop, normalise, augment),
     device step seconds (CUDA events around each step on a card, the
-    step's wall time on the CPU) and wall seconds."""
+    step's wall time on the CPU) and wall seconds. With ``cfg.devices`` > 1
+    the ranks run in processes of their own (:mod:`.ddp`), rank 0 writing
+    the files (its own times in ``epoch_times.csv``); the model returned
+    is the final checkpoint loaded on the first rank's device."""
     dev = resolve_device(cfg.device)
     expname = (f"{datetime.now().strftime('%Y%m%d_%H%M%S_%f')}_"
                f"{cfg.campaign}_{cfg.augment}_"
@@ -224,7 +233,34 @@ def train_experiment(cfg: TrainConfig, progress=print):
     outdir = os.path.join(cfg.outroot, expname)
     weightdir = os.path.join(outdir, "weights")
     os.makedirs(weightdir, exist_ok=True)
+    world = cfg.devices or 1
+    if world == 1:
+        return _train(cfg, expname, outdir, dev, make_model, progress)
 
+    from . import ddp
+    devices = ddp.rank_devices(cfg.device, world)
+    progress(f"Data-parallel over {world} ranks on {[str(d) for d in devices]} "
+             f"({ddp.backend_for(devices)})")
+    ddp.spawn(_train_rank, world, cfg.device, os.path.join(outdir, ".rendezvous"),
+              args=(cfg, expname, outdir, make_model, progress is print))
+    with open(os.path.join(outdir, "metrics.json")) as f:
+        metrics = json.load(f)
+    final = os.path.join(weightdir, f"final_{expname}_weights.npz")
+    model = load_into(make_model(cfg.seed, devices[0]), load_checkpoint(final))
+    return model, outdir, metrics
+
+
+def _train_rank(rank, world, dev, cfg, expname, outdir, make, verbose):
+    """One rank of a data-parallel experiment (:func:`.ddp.spawn`)."""
+    _train(cfg, expname, outdir, dev, make,
+           print if verbose and rank == 0 else (lambda *a: None), rank, world)
+
+
+def _train(cfg, expname, outdir, dev, make, progress, rank=0, world=1):
+    """The experiment's loop on this rank. With ``world`` > 1 the model is
+    wrapped in DDP and each batch split by :func:`.ddp.shard_batch`; rank
+    0 alone evaluates and writes, the others waiting at a barrier."""
+    weightdir = os.path.join(outdir, "weights")
     mean, std = TRAIN_CAMPAIGN_NORM[cfg.campaign]
     mode_csv = "data_labels.csv" if cfg.train_all else "train.csv"
     train_rows = load_labels_csv(os.path.join(cfg.dataroot, cfg.campaign,
@@ -240,18 +276,24 @@ def train_experiment(cfg: TrainConfig, progress=print):
     val_ds = TiledDataset(os.path.join(cfg.dataroot, cfg.campaign),
                           val_rows, mean, std, cfg.crop, "augA")
 
-    model = make_model(cfg.seed, dev)
+    model = make(cfg.seed, dev)
     if cfg.resume:
         progress(f"Resuming weights from {cfg.resume}")
         load_into(model, load_checkpoint(cfg.resume))
+    net = model
+    if world > 1:
+        import torch.distributed as dist
+        from . import ddp
+        net = ddp.wrap(model, dev)
     optimizer = make_inner_optimizer(model.parameters())
     dtype = next(model.parameters()).dtype
     wce = torch.tensor(weights, dtype=dtype, device=dev)
-    step = (make_sam_train_step(model, optimizer, wce, aux_weight=cfg.aux_weight)
+    step = (make_sam_train_step(net, optimizer, wce, aux_weight=cfg.aux_weight)
             if cfg.use_sam else
-            make_sgd_train_step(model, optimizer, wce, aux_weight=cfg.aux_weight))
+            make_sgd_train_step(net, optimizer, wce, aux_weight=cfg.aux_weight))
     # dropout masks: one generator on the step's device, seeded by the run
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    # and the rank
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + rank)
 
     batch_losses = [["epoch", "batch", "loss"]]
     train_epoch_losses = [["epoch", "mean train loss"]]
@@ -269,18 +311,21 @@ def train_experiment(cfg: TrainConfig, progress=print):
                 images, labels = next(batches)
             except StopIteration:
                 break
+            group = None
+            if world > 1:
+                images, labels, group = ddp.shard_batch(images, labels, rank, world)
             data_s += time.perf_counter() - td
             x, y = _to_device(images, labels, dev, dtype)
             if dev.type == "cuda":
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-                losses.append(step(x, y, lr, gen))
+                losses.append(step(x, y, lr, gen, group=group))
                 ev[1].record()
                 marks.append(ev)
             else:
                 ts = time.perf_counter()
-                losses.append(step(x, y, lr, gen))
+                losses.append(step(x, y, lr, gen, group=group))
                 step_s += time.perf_counter() - ts
         lossf = torch.stack(losses).tolist() if losses else []
         if marks:
@@ -296,34 +341,41 @@ def train_experiment(cfg: TrainConfig, progress=print):
         progress(f"Epoch {epoch} took {wall_s:.1f}s "
                  f"loss {epoch_loss / max(nb, 1):.4f}")
 
-        # validation (reference: experiment_script_all.py:390-403)
-        vloss, vb = 0.0, 0
-        model.eval()
-        with torch.no_grad():
-            for images, labels in val_ds.batches(cfg.batch_size, shuffle=False):
-                x, y = _to_device(images, labels, dev, dtype)
-                vloss += float(weighted_cross_entropy(model(x), y, wce))
-                vb += 1
-        model.train()
-        val_epoch_losses.append([epoch, vloss / max(vb, 1)])
+        if rank == 0:
+            # validation (reference: experiment_script_all.py:390-403)
+            vloss, vb = 0.0, 0
+            model.eval()
+            with torch.no_grad():
+                for images, labels in val_ds.batches(cfg.batch_size, shuffle=False):
+                    x, y = _to_device(images, labels, dev, dtype)
+                    vloss += float(weighted_cross_entropy(model(x), y, wce))
+                    vb += 1
+            model.train()
+            val_epoch_losses.append([epoch, vloss / max(vb, 1)])
 
-        if (epoch + 1) % 5 == 0:
-            save_checkpoint(os.path.join(
-                weightdir, f"{epoch}_{expname}_weights.npz"), model)
+            if (epoch + 1) % 5 == 0:
+                save_checkpoint(os.path.join(
+                    weightdir, f"{epoch}_{expname}_weights.npz"), model)
+        if world > 1:
+            dist.barrier()
 
-    for name, rows in [("batch_losses.csv", batch_losses),
-                       ("epoch_losses.csv", train_epoch_losses),
-                       ("val_losses.csv", val_epoch_losses),
-                       ("epoch_times.csv", epoch_times)]:
-        with open(os.path.join(outdir, name), "w", newline="") as f:
-            csv.writer(f).writerows(rows)
+    metrics = None
+    if rank == 0:
+        for name, rows in [("batch_losses.csv", batch_losses),
+                           ("epoch_losses.csv", train_epoch_losses),
+                           ("val_losses.csv", val_epoch_losses),
+                           ("epoch_times.csv", epoch_times)]:
+            with open(os.path.join(outdir, name), "w", newline="") as f:
+                csv.writer(f).writerows(rows)
 
-    # post-training threshold selection on train, report on train/val
-    tr_probs, tr_labels = _predict_probs(model, train_ds, cfg.batch_size, dev)
-    metrics = evaluate_threshold(tr_probs, tr_labels)
-    va_probs, va_labels = _predict_probs(model, val_ds, cfg.batch_size, dev)
-    metrics["val_report"] = evaluate_threshold(va_probs, va_labels)["report"]
-    with open(os.path.join(outdir, "metrics.json"), "w") as f:
-        json.dump(metrics, f, indent=2, default=str)
-    save_checkpoint(os.path.join(weightdir, f"final_{expname}_weights.npz"), model)
+        # post-training threshold selection on train, report on train/val
+        tr_probs, tr_labels = _predict_probs(model, train_ds, cfg.batch_size, dev)
+        metrics = evaluate_threshold(tr_probs, tr_labels)
+        va_probs, va_labels = _predict_probs(model, val_ds, cfg.batch_size, dev)
+        metrics["val_report"] = evaluate_threshold(va_probs, va_labels)["report"]
+        with open(os.path.join(outdir, "metrics.json"), "w") as f:
+            json.dump(metrics, f, indent=2, default=str)
+        save_checkpoint(os.path.join(weightdir, f"final_{expname}_weights.npz"), model)
+    if world > 1:
+        dist.barrier()
     return model, outdir, metrics

@@ -205,7 +205,8 @@ def test_pipeline_imports_no_jax():
             "srcfinder_torch.train.cli, srcfinder_torch.core.geotiff, "
             "srcfinder_torch.core.warp, srcfinder_torch.detect.filtdet, "
             "srcfinder_torch.detect.posthoc_down, "
-            "srcfinder_torch.detect.downsample_cli; "
+            "srcfinder_torch.detect.downsample_cli, srcfinder_torch.parallel, "
+            "srcfinder_torch.parallel.mesh, srcfinder_torch.train.ddp; "
             "assert 'flax' not in sys.modules, 'flax'; "
             "assert 'optax' not in sys.modules, 'optax'; "
             "assert 'orbax' not in sys.modules, 'orbax'; "

@@ -578,24 +578,35 @@ def test_checkpoints_cross_both_ways(experiments, tmp_path):
         np.testing.assert_array_equal(v, flat_b[k], err_msg=k)
 
 
-def test_train_cli_cpu_writes_files_and_refuses_devices(tmp_path, capsys):
+def test_train_cli_cpu_writes_files_and_trains_on_devices(tmp_path, capfd):
     """``python -m srcfinder_torch.train.cli`` on the CPU: one epoch of SGD
     on the tiny campaign writes the loss CSVs, metrics.json and a final npz
-    that loads strictly into GoogLeNet(aux_logits=True); --devices 2 raises
-    (data-parallel training is not ported)."""
+    that loads strictly into GoogLeNet(aux_logits=True); --devices 2 trains
+    data-parallel over 2 gloo ranks and writes the same files
+    (tests/test_torch_train_ddp.py holds its steps to the single run's)."""
     root = _campaign(str(tmp_path / "data"))
     rc = tcli.main([root, "COVID_QC", "--crop", "32", "--epochs", "1", "--batch", "4",
                     "--no-sam", "--augment", "augC", "--outroot", str(tmp_path / "o"),
                     "--device", "cpu"])
     assert rc == 0
-    outdir = capsys.readouterr().out.split("experiment dir: ")[1].splitlines()[0]
+    outdir = capfd.readouterr().out.split("experiment dir: ")[1].splitlines()[0]
     for name in ("batch_losses.csv", "epoch_losses.csv", "val_losses.csv",
                  "epoch_times.csv", "metrics.json"):
         assert os.path.isfile(os.path.join(outdir, name)), name
     final = [f for f in os.listdir(os.path.join(outdir, "weights")) if f.startswith("final")]
     ttrain.load_into(_tmodel(), ttrain.load_checkpoint(os.path.join(outdir, "weights", final[0])))
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tcli.main([root, "COVID_QC", "--devices", "2", "--device", "cpu"])
+    rc = tcli.main([root, "COVID_QC", "--crop", "32", "--epochs", "1", "--batch", "4",
+                    "--no-sam", "--augment", "augC", "--outroot", str(tmp_path / "dp"),
+                    "--device", "cpu", "--devices", "2"])
+    assert rc == 0
+    out = capfd.readouterr().out
+    assert "Data-parallel over 2 ranks" in out and "(gloo)" in out
+    dpdir = out.split("experiment dir: ")[1].splitlines()[0]
+    for name in ("batch_losses.csv", "epoch_losses.csv", "val_losses.csv",
+                 "epoch_times.csv", "metrics.json"):
+        assert os.path.isfile(os.path.join(dpdir, name)), name
+    final = [f for f in os.listdir(os.path.join(dpdir, "weights")) if f.startswith("final")]
+    ttrain.load_into(_tmodel(), ttrain.load_checkpoint(os.path.join(dpdir, "weights", final[0])))
 
 
 def test_folded_and_fused_models_refuse_train():
