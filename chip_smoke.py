@@ -102,6 +102,30 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    events, and the host's ms to queue each step), images/s, each epoch's host data seconds against its device
    step seconds (augA, augC), the device's idle share over one epoch of
    the loop (torch.profiler), peak device memory.
+4f. The msf-flow stages ("flow_stages" line; it runs after 4c): the
+   deployment's own job map (deployment/jobs.json) through
+   python -m srcfinder_torch jobs, each job a process of the port's
+   dispatcher, with every import traced (PYTHONPROFILEIMPORTTIME): a seeded
+   season of a basin-wide AVIRIS-NG campaign over the Permian (FLOW_*:
+   4,096 plumes around ~1,000 sources, 120 flightline polygons in a
+   .shp/.dbf) through cluster-incr-nn -> filter-plumes ->
+   source-persistence, one stage per watched directory (FLOW_STAGES);
+   inversion-run on a TROPOMI-style inversion of 1,024 cells from 16,384
+   retrievals (INV_*; trop_H.csv 16,384 x 1,024) on the card; and
+   wind-quality-check and wind-bands-nc on phase 4c's HRRR 1059 x 1799
+   grid (written again here); then python -m srcfinder_torch windspeed on
+   the card over those grids. Every job must succeed and no process may
+   import jax or the JAX package; the clusters must match the sources
+   with plumes within 2%, every persistence source have FLOW_DAYS
+   overflights, every emission rate equal AvgIMEdivFetch20 x mean x 3600.
+   The inversion job's x_hat and S_hat must equal direct calls of the
+   port's functions on the card bit for bit, and lie within INV_TOL of the
+   port's f64 solve on the card. Prints seconds per job with its imports
+   (torch's apart), the inversion's device ms per function (CUDA events)
+   in f32 and f64 beside its operations and its bound at the f32 rate,
+   cond(K), the S_hat csv write's host seconds, the peak device memory.
+   The path launches no hand kernel: its device work is cuSOLVER and
+   cuBLAS through torch.linalg, and the nearest-cell search.
 5. The exact dense CNN's trunk kernels (fused_stage12, trunk_s23,
    trunk_s3, trunk_s45) against their plain versions, on windows of 256 x
    256 gathered from a 16-line strip cut through the plume of the scene's
@@ -320,6 +344,28 @@ WIND_TIE_KM = 1e-9                 # oracle distances this close are a tie
 # the real-length flightline (phase 8): 12,000 lines, on the 32-line grid
 LONG_SCENE = (12000, 598, 425)
 LONG_PLUME = (slice(6000, 6040), slice(290, 310))
+# the msf-flow stages (phase 4f). A season of a basin-wide AVIRIS-NG campaign
+# over the Permian: FLOW_STRIPS north-south flightline strips of FLOW_SWATH
+# degrees (~2.8 km, 598 samples at ~4.7 m) across FLOW_BOX, each flown on
+# FLOW_DAYS days (120 flightlines), FLOW_SOURCES point sources in the swaths
+# and FLOW_PLUMES plume candidates ~20 m around them (several in one line:
+# what the dedup stage removes). A TROPOMI-style inversion: INV_GRID state
+# cells of INV_CELL degrees (the GEOS-Chem nested grid's) from INV_OBS
+# retrievals of about a week, each seeing the cells within FOOT_CELLS of it.
+FLOW_PLUMES, FLOW_SOURCES = 4096, 1024
+FLOW_STRIPS, FLOW_DAYS, FLOW_SWATH = 30, 4, 0.03
+FLOW_BOX = ((31.0, 33.0), (-104.0, -101.5))                  # lat, lon
+INV_GRID, INV_CELL, INV_ORIGIN = (32, 32), (0.25, 0.3125), (27.0, -108.0)
+INV_OBS, FOOT_CELLS = 16384, 3.0
+# the card's f32 inversion against its f64 one, max |err| / max |f64|:
+# Cholesky and LU in f32 lose about cond(K) x 2^-24 of the residual
+# solve (cond(K) ~1e4 here), smoothed by S_a H^T
+INV_TOL = 1e-3
+# the deployment's job map in stages: each stage watches its own directory
+# (the previous stage's OUTFILE lands in the next one's), since the map's
+# jobs share one OUTFILE parameter
+FLOW_STAGES = (("cluster-incr-nn", "inversion-run"), ("filter-plumes",),
+               ("source-persistence",), ("wind-quality-check", "wind-bands-nc"))
 
 
 def fail(msg):
@@ -1200,6 +1246,367 @@ def phase_winds(workdir, rdn, libf, cmf_product):
                    peak_mem_bytes=peak, launches=launches)
     print(json.dumps({"winds": summary}))
     return launches
+
+
+def write_shapefile(path, polygons):
+    """An ESRI .shp of Polygon records, each polygon a list of closed (k, 2)
+    lon/lat rings, as persistence.read_shapefile_polygons reads it."""
+    import struct
+    import numpy as np
+    recs = []
+    for i, rings in enumerate(polygons):
+        pts = np.concatenate(rings)
+        parts = np.cumsum([0] + [len(r) for r in rings[:-1]])
+        content = (struct.pack("<i", 5) + struct.pack("<4d", *pts.min(0), *pts.max(0))
+                   + struct.pack("<ii", len(rings), len(pts))
+                   + struct.pack(f"<{len(rings)}i", *parts) + pts.astype("<f8").tobytes())
+        recs.append(struct.pack(">ii", i + 1, len(content) // 2) + content)
+    body = b"".join(recs)
+    allpts = np.concatenate([r for p in polygons for r in p])
+    header = (struct.pack(">i", 9994) + bytes(20) + struct.pack(">i", (100 + len(body)) // 2)
+              + struct.pack("<ii", 1000, 5)
+              + struct.pack("<8d", *allpts.min(0), *allpts.max(0), 0, 0, 0, 0))
+    with open(path, "wb") as f:
+        f.write(header + body)
+
+
+def write_dbf(path, field, values, width=20):
+    """A dBASE III file with one character field."""
+    import struct
+    hsize = 32 + 32 + 1
+    header = (bytes([3, 0, 0, 0]) + struct.pack("<I", len(values))
+              + struct.pack("<HH", hsize, 1 + width) + bytes(20))
+    fd = field.encode().ljust(11, b"\x00") + b"C" + bytes(4) + bytes([width, 0]) + bytes(14)
+    with open(path, "wb") as f:
+        f.write(header + fd + b"\r" + b"".join(b" " + v.encode().ljust(width) for v in values))
+
+
+def write_campaign_plumes(root):
+    """The campaign of FLOW_*: the plume list (lat/lon, line names,
+    candidate ids, emission rates), the flightlines' .shp/.dbf, and the
+    number of sources with a plume."""
+    import numpy as np
+    rng = np.random.default_rng(2021)
+    (lat0, lat1), (lon0, lon1) = FLOW_BOX
+    centers = lon0 + (np.arange(FLOW_STRIPS) + 0.5) * (lon1 - lon0) / FLOW_STRIPS
+    strip = rng.integers(0, FLOW_STRIPS, FLOW_SOURCES)
+    src_lon = centers[strip] + rng.uniform(-0.35, 0.35, FLOW_SOURCES) * FLOW_SWATH
+    src_lat = rng.uniform(lat0 + 0.01, lat1 - 0.01, FLOW_SOURCES)
+    src = rng.integers(0, FLOW_SOURCES, FLOW_PLUMES)
+    day = rng.integers(0, FLOW_DAYS, FLOW_PLUMES)
+    line = strip[src] * FLOW_DAYS + day
+    names = [f"ang202109{20 + d:02d}t{15 + k // 10:02d}{(k % 10) * 6:02d}00"
+             for k in range(FLOW_STRIPS) for d in range(FLOW_DAYS)]
+    lat = src_lat[src] + rng.normal(0, 1.5e-4, FLOW_PLUMES)
+    lon = src_lon[src] + rng.normal(0, 1.8e-4, FLOW_PLUMES)
+    flux = rng.lognormal(np.log(300.0), 1.0, FLOW_PLUMES)
+    order = np.lexsort((lat, line))
+    seen = {}
+    plumes = os.path.join(root, "stage0", "permian_plumes_ext.csv")
+    with open(plumes, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["Candidate ID", "Line name", "Plume Latitude (deg)",
+                    "Plume Longitude (deg)", "Emission Rate (kg/hr) [HRRR 10 m]"])
+        for i in order:
+            name = names[line[i]]
+            seen[name] = seen.get(name, 0) + 1
+            w.writerow([f"{name}-{seen[name]}", name, f"{lat[i]:.6f}", f"{lon[i]:.6f}",
+                        f"{flux[i]:.3f}"])
+    # each line a swath-wide strip, shifted a little from day to day
+    rings = []
+    for k in range(FLOW_STRIPS):
+        for d in range(FLOW_DAYS):
+            a = centers[k] + (d - 1.5) * 1e-3 - FLOW_SWATH / 2
+            b = a + FLOW_SWATH
+            rings.append([np.array([[a, lat0], [a, lat1], [b, lat1], [b, lat0], [a, lat0]])])
+    shp = os.path.join(root, "flightlines.shp")
+    write_shapefile(shp, rings)
+    write_dbf(shp[:-4] + ".dbf", "Flight_Run", names)
+    return plumes, shp, len(np.unique(src))
+
+
+def write_inversion_inputs(gdir):
+    """A TROPOMI-style inversion of INV_GRID cells from INV_OBS retrievals
+    in the layout of srcfinder-inversion: trop_H.csv (the Jacobian, each
+    row a truncated Gaussian footprint of one cell's width, in steps of
+    1/256, so the text is exact), trop_meta.csv (xch4 = back + H x_true +
+    noise, back per overpass day), lat.csv and lon.csv. Returns H (f32)."""
+    import numpy as np
+    rng = np.random.default_rng(16384)
+    ny, nx = INV_GRID
+    os.makedirs(gdir)
+    with open(os.path.join(gdir, "lat.csv"), "w") as f:
+        f.write("lat\n" + "".join(f"{INV_ORIGIN[0] + (i + 0.5) * INV_CELL[0]}\n"
+                                  for i in range(ny)))
+    with open(os.path.join(gdir, "lon.csv"), "w") as f:
+        f.write("lon\n" + "".join(f"{INV_ORIGIN[1] + (j + 0.5) * INV_CELL[1]}\n"
+                                  for j in range(nx)))
+    oi, oj = rng.uniform(0, ny, INV_OBS), rng.uniform(0, nx, INV_OBS)
+    di = (np.arange(ny) + 0.5)[None, :, None] - oi[:, None, None]
+    dj = (np.arange(nx) + 0.5)[None, None, :] - oj[:, None, None]
+    r2 = di * di + dj * dj
+    q = np.where(r2 <= FOOT_CELLS ** 2, np.rint(82 * np.exp(-r2 / 2)), 0).astype(np.int64)
+    q = q.reshape(INV_OBS, ny * nx)
+    H = (q / 256).astype(np.float32)
+    x_true = np.clip(rng.normal(10.0, 4.0, ny * nx), 2.0, 25.0)
+    y = H.astype(np.float64) @ x_true + rng.normal(0, 0.3, INV_OBS)
+    if not np.abs(y).min() > 0.5:
+        fail(f"an inversion observation lies near 0 ({np.abs(y).min()}): S_o is singular")
+    days = rng.integers(0, 7, INV_OBS)
+    back = 1860.0 + rng.normal(0, 5, 7)[days]
+    with open(os.path.join(gdir, "trop_meta.csv"), "w") as f:
+        f.write("day,lat,lon,xch4,back\n")
+        for d, a, b, x, bk in zip(days, INV_ORIGIN[0] + oi * INV_CELL[0],
+                                  INV_ORIGIN[1] + oj * INV_CELL[1], back + y, back):
+            f.write(f"{d},{a:.4f},{b:.4f},{x:.4f},{bk:.4f}\n")
+    table = np.array([format(k / 256, ".10g") for k in range(257)], dtype=object)
+    with open(os.path.join(gdir, "trop_H.csv"), "w") as f:
+        for row in q:
+            f.write(",".join(table[row]) + "\n")
+    return H
+
+
+def write_windspeed_plumes(path, n=8):
+    """``n`` candidates of the winds phase's scene time around WIND_CENTER,
+    with IME columns, for srcfinder-windspeed."""
+    import numpy as np
+    rng = np.random.default_rng(8)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["Candidate ID", "Plume Latitude (deg)", "Plume Longitude (deg)",
+                    "AvgIMEdivFetch20 (kg/m)", "StdIMEdivFetch20 (kg/m)", "Aspect ratio20"])
+        for k in range(n):
+            w.writerow([f"ang20200924t211102-{k + 1}",
+                        f"{WIND_CENTER[0] + rng.uniform(-0.05, 0.05):.5f}",
+                        f"{WIND_CENTER[1] + rng.uniform(-0.05, 0.05):.5f}",
+                        f"{rng.uniform(0.01, 0.05):.4f}", f"{rng.uniform(0, 0.01):.4f}",
+                        f"{rng.uniform(0.3, 0.9):.3f}"])
+
+
+def import_profile(stderr):
+    """The processes of a run under PYTHONPROFILEIMPORTTIME, in start order:
+    each one's seconds of imports in all and of torch's (with what it
+    imports), and its imported module names."""
+    procs = []
+    for line in stderr.splitlines():
+        if not line.startswith("import time:"):
+            continue
+        if "imported package" in line:
+            procs.append([])
+            continue
+        _, cum, name = line.split("|")
+        procs[-1].append((len(name) - len(name.lstrip()), name.strip(), int(cum) / 1e6))
+    out = []
+    for rows in procs:
+        top = min(i for i, _, _ in rows)
+        out.append(dict(imports_s=sum(s for i, _, s in rows if i == top),
+                        torch_import_s=next((s for _, n, s in rows if n == "torch"), None),
+                        modules=[n for _, n, _ in rows]))
+    return out
+
+
+def run_port_cli(argv, env):
+    """``python -m srcfinder_torch ARGV`` with every import traced; fails on
+    a non-zero exit or an import of jax or the JAX package anywhere in
+    the process tree. Returns (seconds, stdout, [per-process profile])."""
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "srcfinder_torch", *argv], env=env,
+                         capture_output=True, text=True, timeout=900)
+    s = time.time() - t0
+    if out.returncode:
+        fail(f"python -m srcfinder_torch {' '.join(argv)} exited {out.returncode}:\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    procs = import_profile(out.stderr)
+    bad = sorted({m for p in procs for m in p["modules"]
+                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "srcfinder_tpu")})
+    if bad:
+        fail(f"python -m srcfinder_torch {argv[0]} imported {bad}")
+    return s, out.stdout, procs
+
+
+def inversion_flops(m, n):
+    """Operations of bayesian_inversion and posterior_covariance at m
+    observations and n cells, dense as they run: K = (H S_a) H^T + S_o,
+    Cholesky m^3/3, its solve, S_a H^T v; LU of S_o 2m^3/3 and its solve
+    for n columns, H^T X, two n x n inverses (2n^3 each)."""
+    bayes = 2 * m * n * n + 2 * m * m * n + m * m + 2 * m * n + m ** 3 / 3 + 2 * m * m \
+        + 2 * n * n * m + 2 * n * m
+    post = 2 * m ** 3 / 3 + 2 * m * m * n + 2 * n * n * m + n * n + 4 * n ** 3
+    return bayes, post
+
+
+def spd_cond(K, L, iters=40):
+    """cond(K) of a positive-definite K from its Cholesky factor L: power
+    iteration for the largest eigenvalue, inverse iteration for the
+    smallest (Rayleigh quotients, so a lower bound where not converged)."""
+    import torch
+    g = torch.Generator(device=K.device).manual_seed(0)
+    v = torch.randn(K.shape[0], generator=g, device=K.device, dtype=K.dtype)
+    u = v.clone()
+    for _ in range(iters):
+        v = K @ v
+        v /= v.norm()
+        u = torch.cholesky_solve(u[:, None], L)[:, 0]
+        u /= u.norm()
+    return float((v @ (K @ v)) / (u @ (K @ u)))
+
+
+def inversion_check(gdir, H, dev):
+    """The inversion job's files against direct calls of the port's
+    functions on ``dev`` (bit for bit), its f32 result against the f64 one
+    (INV_TOL), times, operations, bound, condition and peak memory."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from srcfinder_torch.flow.inversion import bayesian_inversion, posterior_covariance
+    meta = pd.read_csv(os.path.join(gdir, "trop_meta.csv"))
+    y = (pd.to_numeric(meta["xch4"]) - pd.to_numeric(meta["back"])).values.astype(np.float32)
+    m, n = H.shape
+    Ht, yt = torch.from_numpy(H).to(dev), torch.from_numpy(y).to(dev)
+    x_a = torch.full((n,), 10.0, device=dev)
+    S_a = torch.diag((0.5 * x_a) ** 2)
+    S_o = torch.diag((0.1 * yt) ** 2)
+    args = {"float32": (Ht, yt, x_a, S_a, S_o),
+            "float64": tuple(a.double() for a in (Ht, yt, x_a, S_a, S_o))}
+    res, ms, peak = {}, {}, {}
+    for dt, (h, yy, xa, sa, so) in args.items():
+        dtype = getattr(torch, dt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        x = bayesian_inversion(h, yy, xa, sa, so, device=dev, dtype=dtype)
+        S = posterior_covariance(h, sa, so, device=dev, dtype=dtype)
+        res[dt] = (x.cpu().numpy(), S.cpu().numpy())
+        ms[dt] = {"bayesian_inversion": cuda_ms(
+                      lambda: bayesian_inversion(h, yy, xa, sa, so, device=dev, dtype=dtype),
+                      reps=3),
+                  "posterior_covariance": cuda_ms(
+                      lambda: posterior_covariance(h, sa, so, device=dev, dtype=dtype),
+                      reps=3)}
+        peak[dt] = torch.cuda.max_memory_allocated()
+    x32, S32 = res["float32"]
+    x64, S64 = res["float64"]
+    cli = [np.loadtxt(os.path.join(gdir, f), delimiter=",").astype(np.float32)
+           for f in ("x_hat.csv", "S_hat.csv")]
+    for name, a, b in (("x_hat", cli[0], x32), ("S_hat", cli[1], S32)):
+        if not np.array_equal(a, b):
+            fail(f"the inversion CLI's {name} differs from a direct call: "
+                 f"max |diff| {np.abs(a - b).max()}")
+    err = {}
+    for name, a, b in (("x_hat", x32, x64), ("S_hat", S32, S64)):
+        if not np.isfinite(a).all():
+            fail(f"the card's f32 {name} is not finite")
+        err[name] = float(np.abs(a - b).max() / np.abs(b).max())
+        if not err[name] <= INV_TOL:
+            fail(f"the card's f32 {name} lies {err[name]} from its f64 solve (> {INV_TOL})")
+    K = args["float64"][0] @ args["float64"][3] @ args["float64"][0].T + args["float64"][4]
+    cond = spd_cond(K, torch.linalg.cholesky(K))
+    del K
+    t0 = time.time()
+    np.savetxt(os.path.join(gdir, "S_hat_direct.csv"), S32, delimiter=",")
+    csv_s = time.time() - t0
+    flops = dict(zip(("bayesian_inversion", "posterior_covariance"), inversion_flops(m, n)))
+    nbytes = {"bayesian_inversion": 4 * (m * n + n * n + m * m + m + 2 * n),
+              "posterior_covariance": 4 * (m * n + 2 * n * n + m * m)}
+    bound = {k: max(nbytes[k] / PEAK_BYTES, flops[k] / PEAK_FLOPS["float32"]) * 1e3
+             for k in flops}
+    return dict(m=m, n=n, min_abs_y=float(np.abs(y).min()), cond_K=cond, rel_err=err,
+                tol=INV_TOL, cli_equals_direct_call=True, ms=ms, flops=flops,
+                bytes=nbytes, bound_ms=bound, bound_by="operations",
+                tflops_f32={k: flops[k] / ms["float32"][k] / 1e9 for k in flops},
+                S_hat_csv_write_s=csv_s, peak_mem_bytes=peak)
+
+
+def phase_flow_stages(workdir):
+    """The msf-flow stages through the deployment's job map (phase 4f):
+    srcfinder-jobs as python -m srcfinder_torch jobs over
+    deployment/jobs.json, stage by stage (FLOW_STAGES), each job a process
+    of the port's dispatcher; then srcfinder-windspeed on the card. Checks
+    every job, the stages' outputs and the inversion (inversion_check)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    t_phase = time.time()
+    torch.cuda.empty_cache()             # room for the jobs' processes
+    root = os.path.join(workdir, "flow")
+    stages = [os.path.join(root, f"stage{i}") for i in range(len(FLOW_STAGES))]
+    for d in stages:
+        os.makedirs(d)
+    t0 = time.time()
+    grids = write_wind_grids(os.path.join(root, "winds"))
+    plumes, shp, n_src = write_campaign_plumes(root)
+    H = write_inversion_inputs(os.path.join(stages[0], "trop"))
+    os.symlink(grids["hrrr"][1], os.path.join(stages[3], os.path.basename(grids["hrrr"][1])))
+    speed_csv = os.path.join(root, "ang20200924t211102_plumes_minppmm500.csv")
+    write_windspeed_plumes(speed_csv)
+    setup_s = time.time() - t0
+
+    out = {"cluster": os.path.join(stages[1], "permian_plumes_cluster.csv"),
+           "dedup": os.path.join(stages[2], "permian_plumes_dedup.csv"),
+           "persistence": os.path.join(root, "permian_persistence.csv"),
+           "nc": os.path.join(root, "hrrr_2020092421.nc")}
+    sets = ([f"OUTFILE={out['cluster']}"], [f"OUTFILE={out['dedup']}"],
+            [f"FLIGHTLINES={shp}", f"OUTFILE={out['persistence']}"],
+            [f"OUTFILE={out['nc']}"])
+    env = dict(os.environ, PYTHONPATH=HERE, PYTHONPROFILEIMPORTTIME="1")
+    specs = os.path.join(HERE, "deployment", "jobs.json")
+    with open(specs) as f:
+        job_map = json.load(f)
+    jobs, runners = [], []
+    for watch, names, kv in zip(stages, FLOW_STAGES, sets):
+        argv = ["jobs", specs, "--watch", watch, "--once", "--force",
+                "--jobs", ",".join(names)] + [a for s in kv for a in ("--set", s)]
+        s, stdout, procs = run_port_cli(argv, env)
+        times = re.findall(r"^\[TIME\] (\S+): ([\d.]+) s$", stdout, re.M)
+        info = re.search(r"submitted (\d+) job\(s\); (\d+) ok, (\d+) failed", stdout)
+        if (not info or info[1] != info[2] or info[3] != "0" or int(info[1]) != len(times)
+                or {t for t, _ in times} != {job_map[n]["command"][0] for n in names}):
+            fail(f"jobs {names}: {stdout[-2000:]}")
+        runners.append(dict(jobs=list(names), s=s, imports_s=procs[0]["imports_s"],
+                            torch_import_s=procs[0]["torch_import_s"]))
+        for (script, js), p in zip(times, procs[1:]):
+            jobs.append(dict(script=script, s=float(js), imports_s=p["imports_s"],
+                             torch_import_s=p["torch_import_s"]))
+
+    # the stages' outputs
+    clustered = pd.read_csv(out["cluster"])
+    deduped = pd.read_csv(out["dedup"])
+    pers = pd.read_csv(out["persistence"])
+    n_clusters = clustered["Source ID"].nunique()
+    if len(clustered) != FLOW_PLUMES or abs(n_clusters - n_src) > 0.02 * n_src:
+        fail(f"cluster: {len(clustered)} rows, {n_clusters} sources (plumes came "
+             f"from {n_src})")
+    if not 0 < len(deduped) < len(clustered):
+        fail(f"dedup kept {len(deduped)} of {len(clustered)} plumes")
+    if len(pers) != deduped["Source identifier"].nunique() or not (
+            pers["total.overflights"] == FLOW_DAYS).all():
+        fail(f"persistence: {len(pers)} sources, overflights "
+             f"{pers['total.overflights'].value_counts(dropna=False).to_dict()}")
+    with open(out["nc"], "rb") as f:
+        engine = "netcdf4" if f.read(4) == b"\x89HDF" else "classic"
+
+    # srcfinder-windspeed on the card over the HRRR grids
+    speed_out = os.path.join(root, "windspeed.csv")
+    s, _, procs = run_port_cli(["windspeed", "-p", speed_csv, "-w",
+                                os.path.join(root, "winds", "hrrr"), "--wind-ext", ".npz",
+                                "-o", speed_out], env)
+    jobs.append(dict(script="srcfinder-windspeed", s=s, imports_s=procs[0]["imports_s"],
+                     torch_import_s=procs[0]["torch_import_s"]))
+    speed = pd.read_csv(speed_out)
+    mean = speed["Wind Mean (m/s) [HRRR 10 m, 10 nearest points for each of 3 closest times]"]
+    er = speed["Emission Rate (kg/hr) [HRRR 10 m]"]
+    want = speed["AvgIMEdivFetch20 (kg/m)"] * mean * 3600
+    if not (np.isfinite(mean).all() and (mean > 0).all()
+            and np.allclose(er, want, rtol=1e-12, atol=0)):
+        fail(f"windspeed: means {mean.tolist()}, emissions {er.tolist()}")
+
+    inv = inversion_check(os.path.join(stages[0], "trop"), H, torch.device("cuda"))
+    summary = dict(plumes=FLOW_PLUMES, sources=n_src, flightlines=FLOW_STRIPS * FLOW_DAYS,
+                   clusters=int(n_clusters), deduped=len(deduped),
+                   persistence_sources=len(pers), nc_engine=engine,
+                   windspeed_candidates=len(speed), setup_s=setup_s, runners=runners,
+                   jobs=jobs, inversion=inv, phase_s=time.time() - t_phase)
+    print(json.dumps({"flow_stages": summary}))
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def multimodal_chunk_inputs(x_active, dtype):
@@ -3212,6 +3619,7 @@ def main():
         phase_postproc(workdir, cmf_product)
         phase_train(workdir)
         winds_launches = phase_winds(workdir, rdn, libf, cmf_product)
+        phase_flow_stages(workdir)
         mm_launches, mm_checks = phase_multimodal(workdir, libf, write_weights(workdir))
         checks.update(mm_checks)
         strip = write_strip(workdir, cmf_product)

@@ -1,13 +1,12 @@
 """Geodesy: UTM <-> lat/lon, pixel <-> map coordinate transforms.
 
 Self-contained, vectorized replacement for the reference's geodesy stack
-(reference: srcfinder_util.py:815-1024 ``sl2xy``/``xy2sl``/``sl2latlon``/
+(reference: srcfinder_util.py:815-1024 ``sl2xy``/``xy2sl``/``latlon2sl``/
 ``mapinfo`` and the external ``LatLongUTMconversion`` module it imports at
-srcfinder_util.py:27 but does not ship): the pixel -> lat/lon direction the
-plume list and IME stages use, the map -> pixel direction of the north-up
-warp, and the UTM zone's EPSG code of the GeoTIFF writer. UTM conversion uses the standard
-Snyder/USGS series on the WGS-84 ellipsoid (the same formulas as the
-classic public-domain UTMtoLL), vectorized with numpy.
+srcfinder_util.py:27 but does not ship). UTM conversion uses the standard
+Snyder/USGS series on the WGS-84 ellipsoid (the same formulas as the classic
+public-domain LLtoUTM/UTMtoLL), vectorized with numpy. The port's copy of
+the JAX package's ``core/geo.py``.
 """
 
 from __future__ import annotations
@@ -16,8 +15,11 @@ from collections import OrderedDict
 
 import numpy as np
 
-__all__ = ["utm2latlon", "utmzone2epsg", "sl2xy", "xy2sl", "sl2latlon", "rotxy",
-           "mapinfo", "mapdict2str", "gcdist"]
+__all__ = [
+    "latlon2utm", "utm2latlon", "geo2utmzone", "utmzone2epsg", "epsg2utmzone",
+    "sl2xy", "xy2sl", "sl2latlon", "latlon2sl", "latlon2xy", "rotxy",
+    "mapinfo", "mapdict2str", "geobbox", "gcdist",
+]
 
 DEG2RAD = np.pi / 180.0
 RAD2DEG = 180.0 / np.pi
@@ -28,10 +30,92 @@ _ECC2 = 0.00669438
 _K0 = 0.9996
 
 
+def geo2utmzone(longitude, latitude):
+    """(reference: srcfinder_util.py:666-669)"""
+    zone = int(1 + (longitude + 180.0) / 6.0)
+    hemi = "N" if latitude >= 0.0 else "S"
+    return zone, hemi
+
+
 def utmzone2epsg(zone, hemi):
     """(reference: srcfinder_util.py:660-662)"""
     assert hemi in ("N", "S")
     return int(("326" if hemi == "N" else "327") + "%02d" % zone)
+
+
+def epsg2utmzone(epsg):
+    """(reference: srcfinder_util.py:664-668)"""
+    zone = epsg % 100
+    hemi = "N" if epsg < 32700 else "S"
+    return zone, hemi
+
+
+def _utm_letter(lat):
+    letters = "CDEFGHJKLMNPQRSTUVWX"
+    band = int(np.clip((np.asarray(lat) + 80) // 8, 0, 19))
+    return letters[band]
+
+
+def latlon2utm(lat, lon, zone=None, datum=None):
+    """lat/lon (deg) -> (easting, northing, zone, hemi letter).
+
+    Matches the reference surface ``latlon2utm`` (srcfinder_util.py:921-943)
+    backed by the classic LLtoUTM Snyder series. Accepts scalars or arrays.
+    """
+    lat = np.asarray(lat, dtype=np.float64)
+    lon = np.asarray(lon, dtype=np.float64)
+    # normalize lon into [-180, 180)
+    lon_n = (lon + 180.0) - np.floor((lon + 180.0) / 360.0) * 360.0 - 180.0
+
+    if zone is None:
+        zone_num = np.floor((lon_n + 180.0) / 6.0).astype(np.int64) + 1
+        # Norway exception
+        zone_num = np.where((lat >= 56.0) & (lat < 64.0) & (lon_n >= 3.0) & (lon_n < 12.0),
+                            32, zone_num)
+        # Svalbard exceptions
+        sval = (lat >= 72.0) & (lat < 84.0)
+        zone_num = np.where(sval & (lon_n >= 0.0) & (lon_n < 9.0), 31, zone_num)
+        zone_num = np.where(sval & (lon_n >= 9.0) & (lon_n < 21.0), 33, zone_num)
+        zone_num = np.where(sval & (lon_n >= 21.0) & (lon_n < 33.0), 35, zone_num)
+        zone_num = np.where(sval & (lon_n >= 33.0) & (lon_n < 42.0), 37, zone_num)
+    else:
+        zone_num = np.asarray(int(zone))
+
+    lon_origin = (zone_num - 1) * 6.0 - 180.0 + 3.0
+
+    ecc2 = _ECC2
+    eccp2 = ecc2 / (1.0 - ecc2)
+    lat_r = lat * DEG2RAD
+    lon_r = lon_n * DEG2RAD
+    lon_o = lon_origin * DEG2RAD
+
+    N = _A / np.sqrt(1.0 - ecc2 * np.sin(lat_r) ** 2)
+    T = np.tan(lat_r) ** 2
+    C = eccp2 * np.cos(lat_r) ** 2
+    Aq = np.cos(lat_r) * (lon_r - lon_o)
+
+    M = _A * (
+        (1 - ecc2 / 4 - 3 * ecc2**2 / 64 - 5 * ecc2**3 / 256) * lat_r
+        - (3 * ecc2 / 8 + 3 * ecc2**2 / 32 + 45 * ecc2**3 / 1024) * np.sin(2 * lat_r)
+        + (15 * ecc2**2 / 256 + 45 * ecc2**3 / 1024) * np.sin(4 * lat_r)
+        - (35 * ecc2**3 / 3072) * np.sin(6 * lat_r)
+    )
+
+    easting = _K0 * N * (
+        Aq + (1 - T + C) * Aq**3 / 6
+        + (5 - 18 * T + T**2 + 72 * C - 58 * eccp2) * Aq**5 / 120
+    ) + 500000.0
+    northing = _K0 * (
+        M + N * np.tan(lat_r) * (
+            Aq**2 / 2 + (5 - T + 9 * C + 4 * C**2) * Aq**4 / 24
+            + (61 - 58 * T + T**2 + 600 * C - 330 * eccp2) * Aq**6 / 720
+        )
+    )
+    northing = np.where(lat < 0, northing + 10000000.0, northing)
+
+    if np.ndim(lat) == 0:
+        return float(easting), float(northing), int(zone_num), _utm_letter(float(lat))
+    return easting, northing, zone_num, np.where(lat >= 0, "N", "S")
 
 
 def utm2latlon(easting, northing, zone, hemi="North", alpha=None, datum=None):
@@ -143,6 +227,32 @@ def sl2latlon(s, l, **kwargs):
     raise ValueError(f'Unknown projection "{proj}"')
 
 
+def latlon2sl(lat, lon, **kwargs):
+    """(reference: srcfinder_util.py:945-959)"""
+    m = kwargs.get("mapinfo", {})
+    proj = m.get("proj")
+    if not proj:
+        raise ValueError("proj undefined")
+    if proj == "Geographic Lat/Lon":
+        return xy2sl(lon, lat, **dict(kwargs))
+    zone = int(m["zone"]) if "zone" in m else None
+    x, y, _, _ = latlon2utm(lat, lon, zone=zone)
+    return xy2sl(x, y, **dict(kwargs))
+
+
+def latlon2xy(lat, lon, **kwargs):
+    """(reference: srcfinder_util.py:961-974)"""
+    m = kwargs.get("mapinfo", {})
+    proj = m.get("proj")
+    if not proj:
+        raise ValueError("proj undefined")
+    if proj == "Geographic Lat/Lon":
+        return lon, lat
+    zone = int(m["zone"]) if "zone" in m else None
+    x, y, _, _ = latlon2utm(lat, lon, zone=zone)
+    return x, y
+
+
 def mapinfo(img, astype=dict):
     """Parse the ENVI 'map info' metadata list into a dict
     (reference: srcfinder_util.py:987-1024).
@@ -196,6 +306,23 @@ def mapdict2str(mapdict):
     maplist = [str(v) for v in vals[:nargs]]
     mapkw = [f"{k}={v}" for k, v in zip(keys[nargs:], vals[nargs:])]
     return "{ " + ", ".join(maplist + mapkw + list(mapmeta)) + " }"
+
+
+def geobbox(img_or_map, shape=None):
+    """lat/lon bounding box of an image (reference: srcfinder_util.py:1210-1224)."""
+    if hasattr(img_or_map, "metadata"):
+        m = mapinfo(img_or_map)
+        nrows, ncols = img_or_map.nrows, img_or_map.ncols
+    else:
+        m = img_or_map
+        nrows, ncols = shape
+    corners_sl = [(0, 0), (ncols - 1, 0), (0, nrows - 1), (ncols - 1, nrows - 1)]
+    lats, lons = [], []
+    for s, l in corners_sl:
+        lat, lon = sl2latlon(s, l, mapinfo=m)
+        lats.append(lat)
+        lons.append(lon)
+    return min(lats), max(lats), min(lons), max(lons)
 
 
 def gcdist(dlon1, dlat1, dlon2, dlat2):

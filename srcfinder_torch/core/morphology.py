@@ -2,11 +2,13 @@
 
 Replaces the skimage machinery the reference wraps
 (reference: srcfinder_util.py:392-450 ``imlabel``/``findobj``/``bwdist``/
-``mergelabels``, :1414-1420 ``remove_small_objects``): the part the
-plume-list and IME stages run.
+``bwdilate``/``bwopen``/``mergelabels``, :1414-1420 ``remove_small_objects``,
+:1704-1732 ``region_maxima``/``local_maxima``).
 
-skimage is not a dependency; connectivity semantics are reproduced
-directly (8-connectivity labeling == scipy label with a full 3x3 structure).
+skimage is not a dependency; connectivity/selem semantics are reproduced
+directly (8-connectivity labeling == scipy label with a full 3x3 structure,
+``disk(r)`` == the x^2+y^2 <= r^2 footprint). The port's copy of the JAX
+package's ``core/morphology.py``.
 """
 
 from __future__ import annotations
@@ -14,8 +16,11 @@ from __future__ import annotations
 import numpy as np
 from scipy import ndimage
 
-__all__ = ["CONN4", "CONN8", "imlabel", "findobj", "disk", "bwdist",
-           "mergelabels", "remove_small_objects", "relabel_sequential"]
+__all__ = [
+    "CONN4", "CONN8", "imlabel", "findobj", "disk", "bwopen", "bwdilate",
+    "bwdist", "mergelabels", "remove_small_objects", "relabel_sequential",
+    "region_maxima", "local_maxima", "reconstruction_erosion", "imresize",
+]
 
 CONN4 = 1
 CONN8 = 2
@@ -36,12 +41,24 @@ def findobj(labimg, max_label: int = 0):
     return ndimage.find_objects(labimg, max_label=max_label)
 
 
-def disk(radius):
-    """Boolean disk structuring element, skimage-compatible
+def disk(radius, dtype=np.uint8):
+    """Disk structuring element, skimage-compatible
     (x^2 + y^2 <= r^2 footprint)."""
     r = int(radius)
     yy, xx = np.mgrid[-r:r + 1, -r:r + 1]
-    return (xx * xx + yy * yy) <= r * r
+    return ((xx * xx + yy * yy) <= r * r).astype(dtype)
+
+
+def bwdilate(bwimg, selem=None):
+    """Binary dilation (reference: srcfinder_util.py:410-413; default disk(3))."""
+    selem = disk(3) if selem is None else selem
+    return ndimage.binary_dilation(np.asarray(bwimg) != 0, structure=selem)
+
+
+def bwopen(bwimg, selem=None):
+    """Binary opening (reference: srcfinder_util.py:405-408; default disk(3))."""
+    selem = disk(3) if selem is None else selem
+    return ndimage.binary_opening(np.asarray(bwimg) != 0, structure=selem)
 
 
 def bwdist(bwimg, metric: str = "euclidean", return_distances=True,
@@ -109,3 +126,78 @@ def relabel_sequential(labimg, offset: int = 1):
     fw[labels] = np.arange(offset, offset + len(labels))
     inv = np.concatenate([[0], labels])
     return fw[labimg], fw, inv
+
+
+def region_maxima(img, mask, return_index: bool = False):
+    """Per-connected-component maximum intensity
+    (reference: srcfinder_util.py:1704-1717)."""
+    ccimg = imlabel(mask)
+    ulab = np.unique(ccimg[ccimg != 0])
+    if len(ulab) == 0:
+        rcmax = np.array([], dtype=np.asarray(img).dtype)
+        return (rcmax, np.zeros((0, 2), dtype=np.int64)) if return_index else rcmax
+    rcmax = np.asarray(ndimage.maximum(img, labels=ccimg, index=ulab),
+                       dtype=np.asarray(img).dtype)
+    if not return_index:
+        return rcmax
+    pos = ndimage.maximum_position(img, labels=ccimg, index=ulab)
+    return rcmax, np.array(pos, dtype=np.int64)
+
+
+def local_maxima(im, rad):
+    """Local maxima at least ``2*rad`` apart
+    (reference: srcfinder_util.py:1719-1732; skimage.feature.peak_local_max
+    semantics: maximum-filter footprint of size 2*min_distance+1, peaks
+    sorted by descending intensity, then greedy min-distance suppression)."""
+    im = np.asarray(im)
+    diam = 2 * rad
+    size = 2 * diam + 1
+    mx = ndimage.maximum_filter(im, size=size, mode="constant", cval=im.min())
+    cand = np.argwhere((im == mx) & (im > im.min()))
+    if len(cand) == 0:
+        return cand
+    order = np.argsort(im[cand[:, 0], cand[:, 1]])[::-1]
+    cand = cand[order]
+    kept = []
+    for rc in cand:
+        if all((rc[0] - k[0]) ** 2 + (rc[1] - k[1]) ** 2 > diam * diam
+               for k in kept):
+            kept.append(rc)
+    return np.array(kept, dtype=np.int64)
+
+
+def reconstruction_erosion(seed, mask, max_iter: int = 10_000):
+    """Morphological reconstruction by erosion (used by the reference's
+    hole-removal branch, srcfinder_util.py:1446-1452). Iterative: erode seed,
+    take pointwise max with mask, until stable."""
+    seed = np.asarray(seed, dtype=np.float64)
+    mask = np.asarray(mask, dtype=np.float64)
+    cur = seed.copy()
+    struct = _STRUCT[CONN4]
+    for _ in range(max_iter):
+        nxt = np.maximum(ndimage.grey_erosion(cur, footprint=struct), mask)
+        if np.array_equal(nxt, cur):
+            break
+        cur = nxt
+    return cur
+
+
+def imresize(img, output_shape, order: int = 0, anti_alias: bool = False,
+             anti_alias_sigma=None, mode: str = "constant", cval=0):
+    """Resize with optional gaussian anti-aliasing
+    (reference: srcfinder_util.py:496-515). order 0=NN, 1=bilinear, 3=cubic."""
+    img = np.asarray(img)
+    if anti_alias:
+        if anti_alias_sigma is None:
+            factors = (np.asarray(img.shape, dtype=float)
+                       / np.asarray(output_shape, dtype=float))
+            anti_alias_sigma = np.maximum(0, (factors - 1) / 2)
+        img = ndimage.gaussian_filter(img, anti_alias_sigma, cval=cval, mode=mode)
+    zoom = [o / s for o, s in zip(output_shape, img.shape)]
+    # map output pixel centers into input coordinates (skimage-style),
+    # clipped to the valid extent (skimage 'edge' boundary behavior)
+    coords = np.meshgrid(*[np.clip((np.arange(n) + 0.5) / z - 0.5, 0, s - 1)
+                           for n, z, s in zip(output_shape, zoom, img.shape)],
+                         indexing="ij")
+    return ndimage.map_coordinates(img, coords, order=order, mode="nearest",
+                                   cval=cval, prefilter=order > 1)

@@ -10,7 +10,8 @@ ECMA-376 SpreadsheetML needed for plume lists:
 - writer: one sheet, inline strings, numbers, bools, blanks.
 - reader: first (or named) sheet; shared strings, inline strings,
   formula-cached strings, booleans, numbers; sparse cells by A1 ref
-  (msf-flow reads ``.xlsx`` plume lists with it).
+  (msf-flow reads ``.xlsx`` plume lists with it, ``load_plumedf``
+  through ``read_xlsx``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import zipfile
 from xml.etree import ElementTree as ET
 from xml.sax.saxutils import escape
 
-__all__ = ["write_xlsx", "read_xlsx_rows"]
+__all__ = ["write_xlsx", "read_xlsx", "read_xlsx_rows"]
 
 _NS = "{http://schemas.openxmlformats.org/spreadsheetml/2006/main}"
 
@@ -197,3 +198,15 @@ def read_xlsx_rows(path: str, sheet_name=None):
         for col, v in vals.items():
             out[r][col] = v
     return out
+
+
+def read_xlsx(path: str, sheet_name=None):
+    """Read one sheet into a pandas DataFrame (first row = header) —
+    the stand-in for pandas.read_excel (no engine in this env)."""
+    import pandas as pd
+
+    rows = read_xlsx_rows(path, sheet_name)
+    if not rows:
+        return pd.DataFrame()
+    header = [("" if h is None else str(h)) for h in rows[0]]
+    return pd.DataFrame(rows[1:], columns=header)

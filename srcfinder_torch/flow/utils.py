@@ -1,8 +1,9 @@
-"""Flow utilities: the directory watcher and the logger
-(reference: msf_flow/utils/{dir_watcher.py, logger.py}).
+"""Flow utilities: directory watcher, logger, CSV concat, R bridge.
 
-The port's copy of ``DirWatcher`` and ``init_logger`` from the JAX
-package's ``flow/utils.py``.
+(reference: msf_flow/utils/{dir_watcher.py, logger.py, r_runner.py,
+concatcsvs.sh})
+
+The port's copy of the JAX package's ``flow/utils.py``.
 """
 
 from __future__ import annotations
@@ -10,10 +11,11 @@ from __future__ import annotations
 import logging
 import os
 import re
+import subprocess
 import sys
 from datetime import datetime, timezone
 
-__all__ = ["DirWatcher", "init_logger"]
+__all__ = ["DirWatcher", "init_logger", "concat_csvs", "run_r_script"]
 
 
 class DirWatcher:
@@ -72,3 +74,27 @@ def init_logger(name="msf_flow", level=logging.INFO, stream=sys.stdout):
             "%(asctime)s %(name)s %(levelname)s: %(message)s"))
         logger.addHandler(handler)
     return logger
+
+
+def concat_csvs(csv_paths, out_path):
+    """Header-preserving CSV concatenation
+    (reference: msf_flow/utils/concatcsvs.sh:1-19)."""
+    wrote_header = False
+    with open(out_path, "w") as out:
+        for path in csv_paths:
+            with open(path) as f:
+                header = f.readline()
+                if not wrote_header:
+                    out.write(header)
+                    wrote_header = True
+                for line in f:
+                    out.write(line)
+    return out_path
+
+
+def run_r_script(script, args=(), rscript="Rscript"):
+    """Rscript subprocess bridge (reference: msf_flow/utils/r_runner.py:
+    17-28). Raises FileNotFoundError when R is absent (not shipped here).
+    """
+    cmd = [rscript, script, *map(str, args)]
+    return subprocess.run(cmd, capture_output=True, text=True, check=True)

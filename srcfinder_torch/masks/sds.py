@@ -123,7 +123,7 @@ def grow_flare_mask(saturated, spec, vis_veto, grow_radius_px: float,
         keep[0] = False
         grow_seeds = keep[lab] & ~np.asarray(vis_veto, bool)
         if grow_seeds.any():
-            selem = disk(int(grow_radius_px))
+            selem = disk(int(grow_radius_px), dtype=bool)
             grown = ndimage.binary_dilation(grow_seeds, structure=selem)
             out[grown] = 2
     out[saturated & ~np.asarray(spec, bool)] = 1

@@ -206,7 +206,15 @@ def test_pipeline_imports_no_jax():
             "srcfinder_torch.core.warp, srcfinder_torch.detect.filtdet, "
             "srcfinder_torch.detect.posthoc_down, "
             "srcfinder_torch.detect.downsample_cli, srcfinder_torch.parallel, "
-            "srcfinder_torch.parallel.mesh, srcfinder_torch.train.ddp; "
+            "srcfinder_torch.parallel.mesh, srcfinder_torch.train.ddp, "
+            "srcfinder_torch.core, srcfinder_torch.core.geo, "
+            "srcfinder_torch.core.morphology, srcfinder_torch.core.labels, "
+            "srcfinder_torch.core.tiles, srcfinder_torch.core.loaders, "
+            "srcfinder_torch.qc, srcfinder_torch.qc.labels, srcfinder_torch.flow, "
+            "srcfinder_torch.flow.cluster, srcfinder_torch.flow.dedup, "
+            "srcfinder_torch.flow.persistence, srcfinder_torch.flow.inversion, "
+            "srcfinder_torch.flow.wind_export, srcfinder_torch.flow.harvester, "
+            "srcfinder_torch.flow.stage_clis, srcfinder_torch.__main__; "
             "assert 'flax' not in sys.modules, 'flax'; "
             "assert 'optax' not in sys.modules, 'optax'; "
             "assert 'orbax' not in sys.modules, 'orbax'; "
