@@ -126,6 +126,35 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    cond(K), the S_hat csv write's host seconds, the peak device memory.
    The path launches no hand kernel: its device work is cuSOLVER and
    cuBLAS through torch.linalg, and the nearest-cell search.
+4g. CMF systematics triage and QC labelling ("triage_qc" line; it runs
+   after 4f), every console script a process of python -m srcfinder_torch
+   with every import traced, the hand kernels' counters zeroed before and
+   read after (none is on this path). (a) covid-oracle at the reference's
+   size (TQ_*): 280 curated flightlines (120 / 40 / 60 / 60 of severity
+   0 / 0.5 / 1 / 2; severity >= 1 and every other 0.5 with column spikes),
+   272 robust column-stats CSVs of 598 columns (half in the _clip
+   spelling) and 8 CMF products of 12,000 x 598 x 4 f32 (~0.92 GB, deleted
+   after) to profile again; run on the card (the CLI's default) and with
+   --device cpu into a stats directory of its own: the printouts equal,
+   the regenerated CSVs npix exactly and the rest within TQ_STATS_RTOL,
+   every severity-2 flightline flagged; again on the card with --expected
+   set to the CPU's printout (exit 0, ALL COUNTS MATCH) and with one count
+   changed (exit 1). Prints the reads, column_stats' device ms on one
+   12,000 x 598 band (CUDA events, median of 10) beside the CPU's, each
+   process's seconds and imports (torch's apart). (b) one labelling season:
+   3 users, 6 CMF products at the main path's scene size with saliency and
+   label-image siblings, 8 campaign candidates each as every user's
+   starting autosave; each user's tagger at its user_port (the first two
+   with --precache on one cache, the second rewriting nothing) driven over
+   HTTP through info, bounds, flags, the fitted and a zoomed /img with all
+   five layers (decoded, sizes checked), seeded relabels, an add by click
+   offsets (within 1 px of click_to_pixel's pixel), a delete, flags and
+   submit; then collect-qc --auto-resolve m, whose candidate labels must
+   equal consensus_rules (written apart from the port's) over the seeded
+   table, which reaches every rule, a flightline rejected by a flag and a
+   conflict resolved to ambiguous. The tagger and collect-qc import no
+   torch. Prints start seconds, the median ms per endpoint, /img ms fitted
+   and zoomed, the precache's and collect-qc's seconds.
 5. The exact dense CNN's trunk kernels (fused_stage12, trunk_s23,
    trunk_s3, trunk_s45) against their plain versions, on windows of 256 x
    256 gathered from a 16-line strip cut through the plume of the scene's
@@ -366,6 +395,23 @@ INV_TOL = 1e-3
 # jobs share one OUTFILE parameter
 FLOW_STAGES = (("cluster-incr-nn", "inversion-run"), ("filter-plumes",),
                ("source-persistence",), ("wind-quality-check", "wind-bands-nc"))
+# CMF systematics triage and QC labelling (phase 4g). The COVID oracle at the
+# reference's size: 280 curated flightlines (COVID_systematics.txt), 120 of
+# severity 0 (the reference's strict no-systematics TP + FP, 98 + 22) and
+# 40 / 60 / 60 of 0.5 / 1 / 2; a robust column-stats CSV of ANG_NCOLS
+# columns for all but TQ_REGEN of them, whose CMF products (real flightline
+# length, 4 bands, f32) are profiled again. Severity >= 1, and every other
+# 0.5, carries column spikes in its median profile.
+TQ_SEVERITIES = ((0.0, 120), (0.5, 40), (1.0, 60), (2.0, 60))
+TQ_REGEN, TQ_CMF_LINES = 8, 12000
+TQ_STATS_RTOL = 1e-6
+# one labelling season on the tagger: TQ_USERS, TQ_FLIGHTLINES CMF products
+# of the main path's scene size, TQ_CANDIDATES campaign candidates each
+TQ_USERS = ("alice", "bob", "carol")
+TQ_FLIGHTLINES, TQ_CANDIDATES = 6, 8
+TQ_LIDFILTERS = {"Coverage": {"accept": ["good", "partial"], "reject": ["bad"]},
+                 "Clouds": {"accept": ["none", "some"], "reject": ["many"]},
+                 "Artifacts": {"accept": ["none", "some"], "reject": ["severe"]}}
 
 
 def fail(msg):
@@ -1405,15 +1451,16 @@ def import_profile(stderr):
     return out
 
 
-def run_port_cli(argv, env):
+def run_port_cli(argv, env, rc=0):
     """``python -m srcfinder_torch ARGV`` with every import traced; fails on
-    a non-zero exit or an import of jax or the JAX package anywhere in
-    the process tree. Returns (seconds, stdout, [per-process profile])."""
+    an exit code other than ``rc`` or an import of jax or the JAX package
+    anywhere in the process tree. Returns (seconds, stdout, [per-process
+    profile])."""
     t0 = time.time()
     out = subprocess.run([sys.executable, "-m", "srcfinder_torch", *argv], env=env,
                          capture_output=True, text=True, timeout=900)
     s = time.time() - t0
-    if out.returncode:
+    if out.returncode != rc:
         fail(f"python -m srcfinder_torch {' '.join(argv)} exited {out.returncode}:\n"
              f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
     procs = import_profile(out.stderr)
@@ -1607,6 +1654,579 @@ def phase_flow_stages(workdir):
                    jobs=jobs, inversion=inv, phase_s=time.time() - t_phase)
     print(json.dumps({"flow_stages": summary}))
     shutil.rmtree(root, ignore_errors=True)
+
+
+def write_covid_campaign(root, rng):
+    """Phase 4g's COVID campaign (TQ_*): the curated list in the real file's
+    comma format, a robust column-stats CSV for every flightline but
+    TQ_REGEN (half in the reference's _clip spelling), and for those the
+    CMF products at the real flightline length (TQ_CMF_LINES x ANG_NCOLS x
+    4 bands, f32, BIP with the CMF CLI's band names; the CMF band's column
+    medians are the flightline's profile). Returns (curated, stats_dir,
+    cmf_dir, severities, regenerated names)."""
+    import numpy as np
+    import pandas as pd
+    from srcfinder_torch.cmf.pipeline import _BAND_NAMES_4
+    from srcfinder_torch.core.envi import create_envi
+    from srcfinder_torch.triage.profile import ANG_NCOLS
+    sev = np.concatenate([np.full(n, s) for s, n in TQ_SEVERITIES])
+    rng.shuffle(sev)
+    names = [f"ang2020{4 + i // 56:02d}{1 + (i // 2) % 28:02d}t{i:06d}_ch4mf_v2y1_img"
+             for i in range(len(sev))]
+    maybe = np.flatnonzero(sev == 0.5)
+    spiked = (sev >= 1) | np.isin(np.arange(len(sev)), maybe[::2])
+    # two of each severity are profiled again: at 0.5 one spiked, one clean
+    regen = [int(i) for s in (0.0, 1.0, 2.0) for i in np.flatnonzero(sev == s)[:2]]
+    regen += [int(maybe[0]), int(maybe[1])]
+    regen = sorted(regen)[:TQ_REGEN]
+    stats_dir, cmf_dir = os.path.join(root, "stats"), os.path.join(root, "cmfs")
+    os.makedirs(stats_dir)
+    os.makedirs(cmf_dir)
+    cols = np.linspace(0, 3, ANG_NCOLS)
+    for i, name in enumerate(names):
+        # tests/test_triage.py::test_covid_oracle_harness's profiles
+        med = 500 + 30 * np.sin(cols) + rng.normal(0, 0.5, ANG_NCOLS)
+        if spiked[i]:
+            med[::7] += 500.0
+        if i not in regen:
+            spell = "_clip_column_stats.csv" if i % 2 else "_column_stats.csv"
+            npix = rng.integers(int(0.9 * TQ_CMF_LINES), TQ_CMF_LINES, ANG_NCOLS)
+            pd.DataFrame({"npix": npix, "med": med, "mad": rng.uniform(20, 40, ANG_NCOLS),
+                          "p05": med - 60, "p95": med + 60}).to_csv(
+                os.path.join(stats_dir, name + spell), index=False)
+            continue
+        meta = {"lines": TQ_CMF_LINES, "samples": ANG_NCOLS, "bands": 4, "interleave": "bip",
+                "data type": 4, "byte order": 0, "header offset": 0,
+                "data ignore value": -9999, "band names": list(_BAND_NAMES_4),
+                "map info": ["UTM", "1", "1", "272247.15", "3992010.65", "3.1", "3.1",
+                             "11", "North", "WGS-84", "units=Meters", "rotation=0"]}
+        mm = create_envi(os.path.join(cmf_dir, name + ".hdr"), meta).open_memmap(
+            interleave="source", writable=True)                  # (L, C, 4)
+        for r0 in range(0, TQ_CMF_LINES, 2000):
+            r1 = min(TQ_CMF_LINES, r0 + 2000)
+            blk = np.empty((r1 - r0, ANG_NCOLS, 4), np.float32)
+            blk[..., :3] = rng.uniform(1, 12, (r1 - r0, ANG_NCOLS, 3))
+            blk[..., 3] = med[None, :] + rng.normal(0, 50, (r1 - r0, ANG_NCOLS))
+            if r0 == 0:
+                blk[:40, :, 3] = -9999.0                 # the line's start: nodata
+            mm[r0:r1] = blk
+        mm.flush()
+        del mm
+    curated = os.path.join(root, "COVID_systematics.txt")
+    with open(curated, "w") as f:
+        f.writelines(f"{n}, {s:g}\n" for n, s in zip(names, sev))
+    return curated, stats_dir, cmf_dir, sev, [names[i] for i in regen]
+
+
+def column_stats_ms(band):
+    """column_stats (robust) of one CMF band: the card's device ms (CUDA
+    events, median of 10 after a warm-up) and the CPU's ms (median of 3)."""
+    import numpy as np
+    import torch
+    from srcfinder_torch.triage.profile import column_stats
+    x = torch.from_numpy(band)
+    m = ~((x == -9999) | torch.isnan(x)) & (x > 0)
+    xd, md = x.cuda(), m.cuda()
+    column_stats(xd, md, robust=True)
+    dev = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        column_stats(xd, md, robust=True)
+        end.record()
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end))
+    cpu = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        column_stats(x, m, robust=True)
+        cpu.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(dev)), float(np.median(cpu))
+
+
+def covid_oracle_check(root, env):
+    """Phase 4g (a): covid-oracle through the dispatcher on the card and on
+    the CPU, each regenerating the missing profiles into its own stats
+    directory; the card's run again with --expected set to the CPU's
+    report (exit 0), then with one count changed (exit 1)."""
+    import numpy as np
+    import pandas as pd
+    from srcfinder_torch.core.envi import open_envi
+    from srcfinder_torch.triage.covid import _parse_counts
+    from srcfinder_torch.triage.profile import ANG_NCOLS
+    t_all = t0 = time.time()
+    curated, stats, cmfs, sev, regen = write_covid_campaign(
+        root, np.random.default_rng(280))
+    setup_s = time.time() - t0
+    cpu_stats = os.path.join(root, "stats_cpu")
+    shutil.copytree(stats, cpu_stats)
+    runs = {}
+    # the card's run at the CLI's default device, then the CPU's
+    for dev, sdir, flag in (("cuda", stats, []), ("cpu", cpu_stats, ["--device", "cpu"])):
+        s, out, procs = run_port_cli(["covid-oracle", curated, "--stats-dir", sdir,
+                                      "--cmf-dir", cmfs, *flag], env)
+        runs[dev] = dict(s=s, out=out, imports_s=procs[0]["imports_s"],
+                         torch_import_s=procs[0]["torch_import_s"])
+    if runs["cuda"]["out"] != runs["cpu"]["out"]:
+        fail(f"covid-oracle: the card's report differs from the CPU's:\n"
+             f"{runs['cuda']['out'][-3000:]}\n{runs['cpu']['out'][-3000:]}")
+    counts = _parse_counts(runs["cuda"]["out"].splitlines())
+    strong = counts[("", "Strong Systematics (True Positive)")]
+    if strong != int((sev == 2).sum()) or runs["cuda"]["out"].count("profiling") != len(regen):
+        fail(f"covid-oracle: {strong} of {int((sev == 2).sum())} severity-2 flightlines "
+             f"flagged; {runs['cuda']['out'].count('profiling')} profiled")
+    stats_err = {}
+    for name in regen:
+        a, b = (pd.read_csv(os.path.join(d, name + "_column_stats.csv"))
+                for d in (stats, cpu_stats))
+        if list(a.columns) != ["npix", "med", "mad", "p05", "p95"] or len(a) != len(b) or \
+                not np.array_equal(a["npix"], b["npix"]):
+            fail(f"covid-oracle: {name}'s regenerated npix differ from the CPU's")
+        a, b = a.to_numpy(float), b.to_numpy(float)
+        stats_err[name] = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
+        if not stats_err[name] <= TQ_STATS_RTOL:
+            fail(f"covid-oracle: {name}'s regenerated stats lie {stats_err[name]} from the "
+                 f"CPU's (> {TQ_STATS_RTOL})")
+    expected = os.path.join(root, "expected.txt")
+    with open(expected, "w") as f:
+        f.write(runs["cpu"]["out"])
+    s, out, procs = run_port_cli(["covid-oracle", curated, "--stats-dir", stats,
+                                  "--expected", expected], env)
+    if "ALL COUNTS MATCH" not in out:
+        fail(f"covid-oracle --expected: {out[-2000:]}")
+    runs["expected"] = dict(s=s, imports_s=procs[0]["imports_s"],
+                            torch_import_s=procs[0]["torch_import_s"])
+    line = next(ln for ln in runs["cpu"]["out"].splitlines() if ln.startswith("Any Systematics"))
+    label, n = line.rsplit("= ", 1)
+    with open(expected, "w") as f:
+        f.write(runs["cpu"]["out"].replace(line, f"{label}= {int(n) + 1}", 1))
+    s, out, _ = run_port_cli(["covid-oracle", curated, "--stats-dir", stats,
+                              "--expected", expected], env, rc=1)
+    if "MISMATCH" not in out:
+        fail(f"covid-oracle with a changed count: {out[-2000:]}")
+    runs["changed"] = dict(s=s)
+    runs_s = time.time() - t_all - setup_s
+    # the regenerated files' reads and one band's column statistics
+    reads = {}
+    for name in regen:
+        t0 = time.perf_counter()
+        band = np.asarray(open_envi(os.path.join(cmfs, name)).read_band(-1), np.float32)
+        reads[name] = time.perf_counter() - t0
+    t0 = time.time()
+    dev_ms, cpu_ms = column_stats_ms(band)
+    timing_s = time.time() - t0
+    for r in runs.values():
+        r.pop("out", None)
+    return dict(flightlines=len(sev), severities={f"{s:g}": int((sev == s).sum())
+                                                  for s, _ in TQ_SEVERITIES},
+                regenerated=len(regen), cmf_shape=[TQ_CMF_LINES, ANG_NCOLS, 4], setup_s=setup_s,
+                counts={f"{k[0]}|{k[1]}": v for k, v in counts.items()},
+                regenerated_stats_max_rel_err=max(stats_err.values()), stats_rtol=TQ_STATS_RTOL,
+                runs=runs, runs_s=runs_s, read_s=reads, column_stats_device_ms=dev_ms,
+                column_stats_cpu_ms=cpu_ms, column_stats_timing_s=timing_s,
+                check_s=time.time() - t_all)
+
+
+def consensus_rules(labels):
+    """The merge's six rules for one candidate's labels, written apart from
+    the port's consensus_label: one label stands; any Reject rejects;
+    ambiguous only, both sides, or ambiguous with one side are Ambiguous;
+    negatives only are False Enhancement; positives only are Super Plume
+    if one says so, else Plume."""
+    pos, neg = {"Plume", "Super Plume"}, {"Artifact", "Cloud", "False Enhancement"}
+    amb = {"Ambiguous", "Duplicate", "Background"}
+    s = set(labels)
+    if len(s) == 1:
+        return s.pop()
+    if "Reject" in s:
+        return "Reject"
+    if s <= neg:
+        return "False Enhancement"
+    if s <= pos:
+        return "Super Plume" if "Super Plume" in s else "Plume"
+    return "Ambiguous"
+
+
+def write_tagger_season(root, rng):
+    """Phase 4g (b)'s campaign: TQ_FLIGHTLINES CMF products of the main
+    path's scene size (SCENE lines x samples, 4 bands f32 BIP, UTM at 3.1
+    m) with a saliency and a label-image sibling each, TQ_CANDIDATES
+    campaign candidates per flightline written as every user's starting
+    autosave (shared cids), the settings, the flag rules, and each user's
+    seeded labels and flags. Flightline 0 reaches every rule of the merge,
+    flightline 1 is rejected by its Coverage flag, flightline 2's users
+    disagree on it (resolved to ambiguous)."""
+    import numpy as np
+    import pandas as pd
+    from srcfinder_torch.core.envi import create_envi, open_envi
+    from srcfinder_torch.core.geo import mapinfo, sl2latlon
+    from srcfinder_torch.core.labels import DIFFSRC, FALSESRC, POINTSRC
+    from srcfinder_torch.qc import labels as ql
+    nl, ns = SCENE[:2]
+    data, out = os.path.join(root, "data"), os.path.join(root, "out")
+    os.makedirs(data)
+    mapi = ["UTM", "1", "1", "272247.15", "3992010.65", "3.1", "3.1", "11", "North",
+            "WGS-84", "units=Meters", "rotation=0"]
+    cids = [chr(ord("A") + k) for k in range(TQ_CANDIDATES)]
+    vocab = ql.POSLABS + ql.NEGLABS + ql.AMBLABS
+    rules0 = (("Plume", "Reject", "Plume"), ("Ambiguous", "Duplicate", "Background"),
+              ("Plume", "False Enhancement", "Plume"), ("Ambiguous", "Plume", "Super Plume"),
+              ("Artifact", "Cloud", "False Enhancement"), ("Plume", "Super Plume", "Plume"),
+              ("Plume", "Plume", "Plume"), ("Cloud", "Cloud", "Cloud"))
+    names, cands, labels, flags = [], {}, {}, {}
+    for i in range(TQ_FLIGHTLINES):
+        name = f"ang2020092{i}t21110{i}_cmf_v2y1_img"
+        names.append(name)
+        meta = {"lines": nl, "samples": ns, "bands": 4, "interleave": "bip", "data type": 4,
+                "byte order": 0, "header offset": 0, "data ignore value": -9999,
+                "map info": mapi}
+        rows = rng.integers(100, nl - 100, TQ_CANDIDATES)
+        cols = rng.integers(40, ns - 40, TQ_CANDIDATES)
+        cube = np.empty((nl, ns, 4), np.float32)
+        cube[..., :3] = rng.uniform(1, 12, (nl, ns, 3))
+        cube[..., 3] = rng.normal(100, 60, (nl, ns))
+        sal = np.clip(rng.normal(0.1, 0.05, (nl, ns)), 0, 1).astype(np.float32)
+        lab = np.zeros((nl, ns), np.int16)
+        for k, (r, c) in enumerate(zip(rows, cols)):
+            cube[r - 6:r + 7, c - 4:c + 5, 3] += 900 + 100 * k
+            sal[r - 8:r + 9, c - 6:c + 7] = 0.9
+            lab[r - 3:r + 4, c - 3:c + 4] = (POINTSRC, DIFFSRC, FALSESRC)[k % 3]
+        cube[:20, :, :] = -9999.0
+        for suffix, arr in (("", cube), ("_saliency", sal[..., None]),
+                            ("_labclass", lab[..., None])):
+            m = dict(meta, bands=arr.shape[2], **{"data type": 4 if arr.dtype == np.float32
+                                                  else 2})
+            mm = create_envi(os.path.join(data, name + suffix + ".hdr"), m).open_memmap(
+                interleave="source", writable=True)
+            mm[:] = arr
+            mm.flush()
+            del mm
+        lat, lon = sl2latlon(cols.astype(float), rows.astype(float),
+                             mapinfo=mapinfo(open_envi(os.path.join(data, name))))
+        lid = ql.cmff_to_lid(name)
+        cands[name] = pd.DataFrame({ql.LIDCOL: lid, ql.CIDCOL: cids, ql.LATCOL: lat,
+                                    ql.LONCOL: lon, ql.LABCOL: ql.PLUMELAB})
+        for u, user in enumerate(TQ_USERS):
+            labels[name, user] = ([r[u] for r in rules0] if i == 0 else
+                                  [vocab[j] for j in rng.integers(len(vocab), size=len(cids))])
+            cover = "bad" if i == 1 or (i == 2 and u == 0) else "good"
+            flags[name, user] = {"Coverage": cover,
+                                 "Clouds": ("none", "some")[int(rng.integers(2))],
+                                 "Artifacts": ("none", "some")[int(rng.integers(2))],
+                                 "Usernotes": f"{user} on line {i}"}
+    for user in TQ_USERS:
+        os.makedirs(os.path.join(out, user))
+        for name in names:
+            cands[name].to_csv(os.path.join(out, user, name + "_cid.csv"), index=False)
+    cfg = os.path.join(root, "settings.json")
+    with open(cfg, "w") as f:
+        json.dump({"users": list(TQ_USERS), "datapath": data}, f)
+    lidf = os.path.join(root, "lidfilters.json")
+    with open(lidf, "w") as f:
+        json.dump(TQ_LIDFILTERS, f)
+    return dict(data=data, out=out, cfg=cfg, lidfilters=lidf, names=names, cids=cids,
+                labels=labels, flags=flags)
+
+
+def png_rgb(data):
+    """The tagger's PNG (8-bit RGB, filter 0 on every row) -> (h, w, 3)."""
+    import struct
+    import zlib
+    import numpy as np
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail("not a PNG")
+    pos, idat, ihdr = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    w, h, depth, color = ihdr[:4]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if depth != 8 or color != 2 or raw.size != h * (1 + 3 * w):
+        fail(f"PNG of {w} x {h}, depth {depth}, colour type {color}, {raw.size} bytes")
+    raw = raw.reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        fail("PNG rows with a filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def tagger_png_size(view, dims, out_max=2048):
+    """(width, height) of the tagger's PNG of ``view`` (x0, y0, x1, y1)
+    over an image of ``dims`` (width, height): the view clipped to the
+    image and magnified by the integer factor that brings its longer side
+    nearest ``out_max`` from below (none past it)."""
+    x0, y0 = max(0, view[0]), max(0, view[1])
+    w = min(dims[0], max(x0 + 1, view[2])) - x0
+    h = min(dims[1], max(y0 + 1, view[3])) - y0
+    k = max(1, out_max // max(w, h)) if max(w, h) < out_max else 1
+    return w * k, h * k
+
+
+def geotiff_epsg(path):
+    """The EPSG code of a little-endian GeoTIFF's GeoKeyDirectory (keys
+    3072 or 2048), read from its first IFD without decoding the pixels."""
+    import struct
+    with open(path, "rb") as f:
+        blob = f.read(1 << 16)
+        if blob[:2] != b"II":
+            fail(f"{path}: not a little-endian TIFF")
+        ifd = struct.unpack("<I", blob[4:8])[0]
+        f.seek(ifd)
+        n = struct.unpack("<H", f.read(2))[0]
+        entries = [struct.unpack("<HHII", f.read(12)) for _ in range(n)]
+        for tag, typ, count, value in entries:
+            if tag == 34735:                         # GeoKeyDirectory, SHORTs
+                f.seek(value)
+                keys = struct.unpack(f"<{count}H", f.read(2 * count))
+                for i in range(4, count, 4):
+                    if keys[i] in (3072, 2048):
+                        return keys[i + 3]
+    return None
+
+
+class TaggerClient:
+    """Requests to one tagger process: each checked for status 200 and its
+    content type, timed under its endpoint's name."""
+
+    def __init__(self, port):
+        self.base = f"http://127.0.0.1:{port}"
+        self.ms = {}
+
+    def call(self, path, body=None, ctype="application/json"):
+        import urllib.request
+        req = urllib.request.Request(self.base + path, method="GET" if body is None else "POST",
+                                     data=None if body is None else json.dumps(body).encode())
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, got, data = r.status, r.headers["Content-Type"], r.read()
+        key = ("GET " if body is None else "POST ") + path.split("?")[0]
+        self.ms.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+        if status != 200 or got != ctype:
+            fail(f"tagger {key}: status {status}, {got}")
+        if ctype == "application/json":
+            data = json.loads(data)
+            if isinstance(data, dict) and "error" in data:
+                fail(f"tagger {key}: {data['error']}")
+        return data
+
+
+def start_tagger(season, user, env, logdir, extra=()):
+    """``python -m srcfinder_torch tagger`` for ``user`` at its user_port,
+    its outputs in files (the import trace outgrows a pipe's buffer);
+    returns (process, client, start seconds, log paths) once /api/info
+    answers."""
+    import urllib.error
+    from srcfinder_torch.qc.webapp import user_port
+    port = user_port(TQ_USERS, user)
+    logs = (os.path.join(logdir, f"{user}.out"), os.path.join(logdir, f"{user}.err"))
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        t0 = time.time()
+        proc = subprocess.Popen([sys.executable, "-m", "srcfinder_torch", "tagger", "--config",
+                                 season["cfg"], "--user", user, "--output", season["out"],
+                                 *extra], env=env, stdout=out, stderr=err)
+    client = TaggerClient(port)
+    while True:
+        try:
+            client.call("/api/info")
+            break
+        except (urllib.error.URLError, ConnectionError):
+            if proc.poll() is not None or time.time() - t0 > 600:
+                proc.kill()
+                with open(logs[1]) as f:
+                    fail(f"tagger for {user} did not start (rc {proc.poll()}): "
+                         f"{f.read()[-3000:]}")
+            time.sleep(0.1)
+    client.ms.clear()
+    return proc, client, time.time() - t0, logs
+
+
+def tagger_session(season, user, client):
+    """One user's scripted session over every flightline (phase 4g (b)).
+    Returns the clicks' distances to click_to_pixel's pixel and the PNG
+    sizes."""
+    from srcfinder_torch.qc.webapp import click_to_pixel
+    layers = "rgb,cmf,salience,labels,candidates"
+    if b"srcfinder QC tagger" not in client.call("/", ctype="text/html"):
+        fail("tagger page")
+    dists, sizes = [], set()
+    for name in season["names"]:
+        info = client.call("/api/info")
+        if name not in info["todo"]:
+            fail(f"tagger: {name} not in {user}'s todo list")
+        b = client.call(f"/api/bounds?fl={name}")
+        dims = [b["width"], b["height"]]
+        client.call(f"/api/flags?fl={name}")
+        fit = png_rgb(client.call(f"/img?fl={name}&layers={layers}", ctype="image/png"))
+        if fit.shape[1::-1] != tagger_png_size([0, 0, *dims], dims):
+            fail(f"tagger: the fitted PNG is {fit.shape[1::-1]} for {dims}")
+        sizes.add(("fit", fit.shape[1], fit.shape[0]))
+        view = client.call("/api/view", {"op": "zoom", "view": None, "dims": dims,
+                                         "f": 0.5})["view"]
+        q = "&".join(f"{k}={v}" for k, v in zip(("x0", "y0", "x1", "y1"), view))
+        zoom = png_rgb(client.call(f"/img?fl={name}&layers={layers}&{q}", ctype="image/png"))
+        sizes.add(("zoom", zoom.shape[1], zoom.shape[0]))
+        seeded = client.call(f"/api/candidates?fl={name}")
+        if [c["cid"] for c in seeded] != season["cids"]:
+            fail(f"tagger: {user}'s {name} starts with {[c['cid'] for c in seeded]}")
+        for cid, lab in zip(season["cids"], season["labels"][name, user]):
+            client.call("/api/relabel", {"fl": name, "cid": cid, "label": lab})
+        if zoom.shape[1::-1] != tagger_png_size(view, dims):
+            fail(f"tagger: the zoomed PNG is {zoom.shape[1::-1]} for view {view}")
+        # a click a quarter into the zoomed view
+        imgh, imgw = zoom.shape[:2]
+        offx, offy = imgw * 0.25 + 0.5, imgh * 0.25 + 0.5
+        client.call("/api/add", {"fl": name, "view": view, "dims": dims, "offx": offx,
+                                 "offy": offy, "imgw": imgw, "imgh": imgh, "label": "Plume"})
+        added = [c for c in client.call(f"/api/candidates?fl={name}")
+                 if c["cid"] not in season["cids"]]
+        col, row = click_to_pixel(view, dims, offx, offy, imgw, imgh)
+        if len(added) != 1:
+            fail(f"tagger: {len(added)} candidates added by one click")
+        dists.append(max(abs(added[0]["col"] - col), abs(added[0]["row"] - row)))
+        client.call("/api/delete", {"fl": name, "cid": added[0]["cid"]})
+        client.call("/api/flags", {"fl": name, "values": season["flags"][name, user]})
+        client.call("/api/submit", {"fl": name})
+    info = client.call("/api/info")
+    log = client.call("/api/log")["text"]
+    if sorted(info["done"]) != sorted(season["names"]) or "submitted" not in log:
+        fail(f"tagger: {user} ends with done {info['done']}")
+    return dists, sizes
+
+
+def check_merge(season, prefix):
+    """collect-qc's label files against the seeded table: the flightline
+    verdicts, and every candidate row's label equal to consensus_rules over
+    the users' labels (all Reject on a flightline a flag rejects)."""
+    import pandas as pd
+    lid = pd.read_csv(prefix + "_lid_filt.csv")
+    verdict = {n: ("Reject" if i == 1 else "Ambiguous" if i == 2 else "Accept")
+               for i, n in enumerate(season["names"])}
+    for _, r in lid.iterrows():
+        if r["Label"] != verdict[r["Line name"] + "_cmf_v2y1_img"]:
+            fail(f"collect-qc: flightline {r['Line name']} labelled {r['Label']}")
+    cid = pd.read_csv(prefix + "_cid_filt.csv")
+    for i, name in enumerate(season["names"]):
+        for k, c in enumerate(season["cids"]):
+            labs = [season["labels"][name, u][k] for u in TQ_USERS]
+            want = "Reject" if i == 1 else consensus_rules(labs)
+            got = cid.loc[(cid["Line name"] + "_cmf_v2y1_img" == name)
+                          & (cid["Candidate ID"].astype(str) == c), "Label"]
+            if len(got) != len(TQ_USERS) or set(got) != {want}:
+                fail(f"collect-qc: {name} {c} labels {got.tolist()}, the rules give {want} "
+                     f"from {labs}")
+    if len(cid) != len(season["names"]) * len(season["cids"]) * len(TQ_USERS):
+        fail(f"collect-qc: {len(cid)} candidate rows")
+    return dict(lid_rows=len(lid), cid_rows=len(cid), final_rows=len(pd.read_csv(
+        prefix + "_cid_filt_nodup_norej_noamb.csv")),
+        labels=cid["Label"].value_counts().to_dict())
+
+
+def tagger_season_check(root, env):
+    """Phase 4g (b): one labelling season, three users' taggers one after
+    another (the first with --precache, the second with --precache on the
+    same cache, which must rewrite nothing), then collect-qc."""
+    import numpy as np
+    t_all = t0 = time.time()
+    season = write_tagger_season(root, np.random.default_rng(2801))
+    setup_s = time.time() - t0
+    gcache, logdir = os.path.join(root, "gtif"), os.path.join(root, "logs")
+    os.makedirs(logdir)
+    starts, ms, dists, sizes, imports, session_s, stop_s = {}, {}, [], set(), {}, {}, {}
+    mtimes = None
+    for u, user in enumerate(TQ_USERS):
+        extra = ("--precache", "--gtif-cache", gcache) if u < 2 else ()
+        proc, client, starts[user], logs = start_tagger(season, user, env, logdir, extra)
+        try:
+            if u == 0:
+                cached = sorted(os.listdir(gcache))
+                mtimes = {f: os.stat(os.path.join(gcache, f)).st_mtime_ns for f in cached}
+            if u == 1 and {f: os.stat(os.path.join(gcache, f)).st_mtime_ns
+                           for f in os.listdir(gcache)} != mtimes:
+                fail("tagger --precache rewrote a cached GeoTIFF")
+            t1 = time.time()
+            d, s = tagger_session(season, user, client)
+            session_s[user] = time.time() - t1
+            dists += d
+            sizes |= s
+        finally:
+            t1 = time.time()
+            proc.terminate()
+            proc.wait(timeout=60)
+            stop_s[user] = time.time() - t1
+        for k, v in client.ms.items():
+            ms.setdefault(k, []).extend(v)
+        with open(logs[1]) as f:
+            trace = f.read()
+        # every import of the tagger and of its precache workers (their
+        # traces share the file, so only a tagger without workers is timed)
+        bad = sorted({ln.split("|")[-1].strip() for ln in trace.splitlines()
+                      if ln.startswith("import time:") and ln.split("|")[-1].strip().split(".")[0]
+                      in ("torch", "jax", "jaxlib", "flax", "srcfinder_tpu")})
+        if bad:
+            fail(f"the tagger imported {bad[:10]}")
+        if not extra:
+            imports[user] = import_profile(trace)[0]["imports_s"]
+    if max(dists) > 1.0:
+        fail(f"tagger: an added candidate lies {max(dists)} px from its click's pixel")
+    if [s for s in sizes if s[0] == "fit"] != [("fit", *tagger_png_size([0, 0, *SCENE[1::-1]],
+                                                                          SCENE[1::-1]))]:
+        fail(f"tagger: fitted PNG sizes {sorted(sizes)}")
+    epsg = {f: geotiff_epsg(os.path.join(gcache, f)) for f in cached}
+    if len(cached) != TQ_FLIGHTLINES or set(epsg.values()) != {3857}:
+        fail(f"tagger --precache: {epsg}")
+    prefix = os.path.join(root, "campaign")
+    collect_s, _, procs = run_port_cli(["collect-qc", season["out"], "--lidfilters",
+                                        season["lidfilters"], "--outprefix", prefix,
+                                        "--auto-resolve", "m"], env)
+    if any(m.split(".")[0] == "torch" for p in procs for m in p["modules"]):
+        fail("collect-qc imported torch")
+    merge = check_merge(season, prefix)
+    img = {k: float(np.median(ms["GET /img"][i::2])) for i, k in enumerate(("fit", "zoom"))}
+    return dict(users=len(TQ_USERS), flightlines=TQ_FLIGHTLINES, candidates=TQ_CANDIDATES,
+                scene=list(SCENE[:2]), setup_s=setup_s, start_s=starts, session_s=session_s,
+                stop_s=stop_s,
+                precache_s=starts[TQ_USERS[0]] - starts[TQ_USERS[2]],
+                imports_s=imports, collect_qc_s=collect_s,
+                collect_qc_imports_s=procs[0]["imports_s"], png_sizes=sorted(sizes),
+                click_max_px=max(dists), img_ms=img, gtifs=len(cached),
+                endpoint_ms={k: float(np.median(v)) for k, v in sorted(ms.items())},
+                requests=sum(len(v) for v in ms.values()), merge=merge,
+                check_s=time.time() - t_all)
+
+
+def phase_triage_qc(workdir):
+    """CMF systematics triage and QC labelling (phase 4g): the COVID oracle
+    at the reference's size on the card against the CPU, and one labelling
+    season on the tagger merged by collect-qc, each console script a
+    process of the port's dispatcher with every import traced. The hand
+    kernels' counters are zeroed before and read after: none is on this
+    path."""
+    from srcfinder_torch.ops import loo, moments, trunk_fuse
+    kernels = (moments.KERNEL, loo.KERNEL, trunk_fuse.KERNEL)
+    for k in kernels:
+        k.reset()
+    t0 = time.time()
+    root = os.path.join(workdir, "triage_qc")
+    env = dict(os.environ, PYTHONPATH=HERE, PYTHONPROFILEIMPORTTIME="1")
+    try:
+        os.makedirs(os.path.join(root, "covid"))
+        os.makedirs(os.path.join(root, "qc"))
+        oracle = covid_oracle_check(os.path.join(root, "covid"), env)
+        shutil.rmtree(os.path.join(root, "covid"), ignore_errors=True)
+        season = tagger_season_check(os.path.join(root, "qc"), env)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k.name: k.launches for k in kernels}
+    if any(launches.values()):
+        fail(f"triage_qc launched hand kernels: {launches}")
+    print(json.dumps({"triage_qc": dict(covid_oracle=oracle, tagger=season,
+                                        hand_kernel_launches=launches,
+                                        phase_s=time.time() - t0)}))
 
 
 def multimodal_chunk_inputs(x_active, dtype):
@@ -3620,6 +4240,7 @@ def main():
         phase_train(workdir)
         winds_launches = phase_winds(workdir, rdn, libf, cmf_product)
         phase_flow_stages(workdir)
+        phase_triage_qc(workdir)
         mm_launches, mm_checks = phase_multimodal(workdir, libf, write_weights(workdir))
         checks.update(mm_checks)
         strip = write_strip(workdir, cmf_product)

@@ -6,3 +6,5 @@ Entry points run on the CUDA device by default and raise without one
 unless ``device="cpu"`` is passed. The package imports torch, numpy,
 scipy and pandas only.
 """
+
+__version__ = "0.1.0"

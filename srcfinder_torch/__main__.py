@@ -2,9 +2,9 @@
 
 Each name is one of the JAX package's console scripts
 (``pyproject.toml``'s ``srcfinder-<name>``) without its prefix, and runs
-the port's ``main`` of the same surface with ``args``. With no name, or a
-name the port does not run, it prints the names and exits 2; it never
-runs the JAX package's script.
+the port's ``main`` of the same surface with ``args``; all 25 are here.
+With no name, or a name it does not know, it prints the names and exits
+2; it never runs the JAX package's script.
 """
 
 from __future__ import annotations
@@ -36,25 +36,20 @@ COMMANDS = {
     "wind-qc": "srcfinder_torch.flow.stage_clis:wind_qc_main",
     "persistence": "srcfinder_torch.flow.stage_clis:persistence_main",
     "inversion": "srcfinder_torch.flow.stage_clis:inversion_main",
+    "tagger": "srcfinder_torch.qc.webapp:main",
+    "collect-qc": "srcfinder_torch.qc.collect_cli:main",
+    "covid-oracle": "srcfinder_torch.triage.covid:main",
 }
-
-#: the JAX package's console scripts the port does not run yet
-NOT_PORTED = ("tagger", "collect-qc", "covid-oracle")
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     name = argv[0] if argv else None
     if name not in COMMANDS:
-        if name in NOT_PORTED:
-            print(f"srcfinder-{name} is not yet ported to srcfinder_torch",
-                  file=sys.stderr)
-        else:
-            if name is not None:
-                print(f"unknown command {name!r}", file=sys.stderr)
-            print("usage: python -m srcfinder_torch <name> [args...]\n"
-                  f"names: {' '.join(COMMANDS)}\n"
-                  f"not yet ported: {' '.join(NOT_PORTED)}", file=sys.stderr)
+        if name is not None:
+            print(f"unknown command {name!r}", file=sys.stderr)
+        print("usage: python -m srcfinder_torch <name> [args...]\n"
+              f"names: {' '.join(COMMANDS)}", file=sys.stderr)
         return 2
     module, func = COMMANDS[name].split(":")
     return getattr(importlib.import_module(module), func)(argv[1:]) or 0

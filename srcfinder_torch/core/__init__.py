@@ -9,7 +9,7 @@ not carry. They load on first use, so a process imports the modules it
 uses only (torch with the prefetcher).
 """
 
-import importlib
+from .._lazy import lazy_names as _lazy_names
 
 _NAMES = {
     "envi": ("EnviImage", "open_envi", "create_envi", "save_envi", "find_header",
@@ -32,20 +32,4 @@ _NAMES = {
                 "smoothbil"),
     "prefetch": ("BlockPrefetcher",),
 }
-_MODULE_OF = {name: mod for mod, names in _NAMES.items() for name in names}
-__all__ = list(_MODULE_OF)
-
-
-def __getattr__(name):
-    if name in _MODULE_OF:
-        value = getattr(importlib.import_module(f"{__name__}.{_MODULE_OF[name]}"), name)
-    elif name in _NAMES:
-        value = importlib.import_module(f"{__name__}.{name}")
-    else:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    globals()[name] = value
-    return value
-
-
-def __dir__():
-    return sorted(set(globals()) | set(__all__) | set(_NAMES))
+__getattr__, __dir__, __all__ = _lazy_names(__name__, _NAMES)

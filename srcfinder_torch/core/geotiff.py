@@ -40,47 +40,61 @@ _CLEAR, _EOI, _FIRST = 256, 257, 258
 
 
 def _lzw_encode_py(data: bytes) -> bytes:
-    """TIFF 6.0 LZW (MSB-first bit packing, early code-width change)."""
-    out = bytearray()
-    buf = 0
-    nbuf = 0
+    """TIFF 6.0 LZW (MSB-first bit packing, early code-width change).
 
-    def emit(code, bits):
-        nonlocal buf, nbuf
-        buf = (buf << bits) | code
+    The string table is keyed by (prefix code, next byte) packed in one
+    int, the single bytes being codes 0-255, and the bit packing is
+    inline: the same codes as a table of byte strings, at about half the
+    interpreter time."""
+    out = bytearray()
+    append = out.append
+    buf, nbuf = _CLEAR, 9
+    table: dict = {}
+    get = table.get
+    nxt, bits = _FIRST, 9
+    cur = -1
+    for byte in data:
+        if cur < 0:
+            cur = byte
+            continue
+        key = (cur << 8) | byte
+        code = get(key)
+        if code is not None:
+            cur = code
+            continue
+        buf = (buf << bits) | cur
         nbuf += bits
         while nbuf >= 8:
             nbuf -= 8
-            out.append((buf >> nbuf) & 0xFF)
+            append((buf >> nbuf) & 0xFF)
         buf &= (1 << nbuf) - 1
-
-    table = {bytes([i]): i for i in range(256)}
-    nxt, bits = _FIRST, 9
-    emit(_CLEAR, bits)
-    cur = b""
-    for byte in data:
-        cand = cur + bytes([byte])
-        if cand in table:
-            cur = cand
-            continue
-        emit(table[cur], bits)
-        table[cand] = nxt
+        table[key] = nxt
         nxt += 1
         # width bump calibrated against libtiff (PIL cross-checked in
         # tests): encoder at nxt == 2^bits, decoder one entry earlier
         # (its table lags by one) at len == 2^bits - 1
         if nxt == 4094:                 # table nearly full: restart
-            emit(_CLEAR, bits)
-            table = {bytes([i]): i for i in range(256)}
+            buf = (buf << bits) | _CLEAR
+            nbuf += bits
+            while nbuf >= 8:
+                nbuf -= 8
+                append((buf >> nbuf) & 0xFF)
+            buf &= (1 << nbuf) - 1
+            table.clear()
             nxt, bits = _FIRST, 9
         elif nxt == (1 << bits) and bits < 12:
             bits += 1
-        cur = bytes([byte])
-    if cur:
-        emit(table[cur], bits)
-    emit(_EOI, bits)
+        cur = byte
+    if cur >= 0:
+        buf = (buf << bits) | cur
+        nbuf += bits
+    buf = (buf << bits) | _EOI
+    nbuf += bits
+    while nbuf >= 8:
+        nbuf -= 8
+        append((buf >> nbuf) & 0xFF)
     if nbuf:
-        out.append((buf << (8 - nbuf)) & 0xFF)
+        append((buf << (8 - nbuf)) & 0xFF)
     return bytes(out)
 
 

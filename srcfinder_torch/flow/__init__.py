@@ -8,7 +8,7 @@ imports that stage's modules only, and torch only where the stage runs
 on the device.
 """
 
-import importlib
+from .._lazy import lazy_names as _lazy_names
 
 # the function ``cluster`` takes its module's name, as in the JAX package
 from .cluster import cluster, cluster_plume_list, source_num_to_str
@@ -39,20 +39,5 @@ _NAMES = {
     "wind_export": ("regrid_to_latlon", "write_wind_nc", "wind_grid_to_nc",
                     "parse_wind_filename_date"),
 }
-_MODULE_OF = {name: mod for mod, names in _NAMES.items() for name in names}
-__all__ = ["cluster", "cluster_plume_list", "source_num_to_str", *_MODULE_OF]
-
-
-def __getattr__(name):
-    if name in _MODULE_OF:
-        value = getattr(importlib.import_module(f"{__name__}.{_MODULE_OF[name]}"), name)
-    elif name in _NAMES:
-        value = importlib.import_module(f"{__name__}.{name}")
-    else:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    globals()[name] = value
-    return value
-
-
-def __dir__():
-    return sorted(set(globals()) | set(__all__) | set(_NAMES))
+__getattr__, __dir__, _LAZY = _lazy_names(__name__, _NAMES)
+__all__ = ["cluster", "cluster_plume_list", "source_num_to_str", *_LAZY]

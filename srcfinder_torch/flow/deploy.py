@@ -168,14 +168,12 @@ def port_argv(argv) -> list[str]:
     ...]``; any other command is kept as it is. Raises ValueError for a
     ``srcfinder-`` name the port's dispatcher does not run, so the job
     fails rather than reach the JAX package's script."""
-    from ..__main__ import COMMANDS, NOT_PORTED
+    from ..__main__ import COMMANDS
 
     argv = [str(a) for a in argv]
     if not argv[0].startswith(SCRIPT_PREFIX):
         return argv
     name = argv[0][len(SCRIPT_PREFIX):]
-    if name in NOT_PORTED:
-        raise ValueError(f"{argv[0]} is not yet ported to srcfinder_torch")
     if name not in COMMANDS:
         raise ValueError(f"{argv[0]} is not a console script srcfinder_torch "
                          f"knows (python -m srcfinder_torch lists them)")

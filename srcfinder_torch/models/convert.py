@@ -12,6 +12,8 @@ torch checkpoint names and layouts (conv OIHW, linear (out, in)).
   the same weights (with ``aux_heads=True`` also the trainer's aux heads).
 - :func:`torch_state_dict_to_flax`: the inverse (reference ``.pt`` ->
   Flax tree), aux heads included when the ``state_dict`` has them.
+- :func:`load_pt`: a ``.pt`` file -> the Flax tree (the JAX package's
+  ``load_pt``).
 - :func:`load_weights` / :func:`save_weights`: ``.npz`` (Flax layout) and
   ``.pt`` (torch layout) files; ``load_weights`` gives the inference
   network's ``state_dict``, without aux heads.
@@ -28,7 +30,7 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["flax_to_torch_state_dict", "torch_state_dict_to_flax",
+__all__ = ["flax_to_torch_state_dict", "torch_state_dict_to_flax", "load_pt",
            "load_weights", "save_weights", "unflatten"]
 
 
@@ -168,6 +170,13 @@ def torch_state_dict_to_flax(sd):
             continue
         raise KeyError(f"unrecognized torch key: {key}")
     return {"params": params, "batch_stats": stats}
+
+
+def load_pt(path: str):
+    """A reference ``.pt`` checkpoint -> the Flax variables tree the JAX
+    package's ``load_pt`` gives (reference: cnn_pred_pipeline.py:111
+    ``torch.load(weightpath)``)."""
+    return torch_state_dict_to_flax(torch.load(path, map_location="cpu", weights_only=True))
 
 
 def load_weights(path: str):

@@ -34,8 +34,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["GoogLeNet", "InceptionAux", "BatchNorm2d", "frozen_stats", "cross_replica",
-           "CAMPAIGN_NORM", "fuse_state_dict", "fold_state_dict", "fold_inference"]
+__all__ = ["GoogLeNet", "googlenet", "InceptionAux", "BatchNorm2d", "frozen_stats",
+           "cross_replica", "CAMPAIGN_NORM", "clamp_ch4", "adaptive_avg_pool2d",
+           "fuse_state_dict", "fold_state_dict", "fold_inference"]
 
 #: per-campaign normalization constants
 #: (reference: cnn/cnn_pred_pipeline.py:126-157)
@@ -48,6 +49,18 @@ CAMPAIGN_NORM = {
 }
 
 BN_EPS = 1e-3
+
+
+def clamp_ch4(x, vmin=0.0, vmax=4000.0):
+    """ClampCH4 preprocessing (reference: cnn_pred_pipeline.py:19-30)."""
+    return torch.clamp(x, vmin, vmax)
+
+
+def adaptive_avg_pool2d(x, out_hw):
+    """torch's adaptive average pool in NCHW (the JAX package's NHWC
+    helper of the same name): bin i spans [floor(i*H/out),
+    ceil((i+1)*H/out)), so bins may overlap (e.g. 14 -> 4)."""
+    return F.adaptive_avg_pool2d(x, out_hw)
 
 
 def _ceil_maxpool(x, window: int, stride: int):
@@ -426,6 +439,12 @@ class GoogLeNet(nn.Module):
             x = blk(x, 16)
         x = _dilated_maxpool(x, 2, 16)
         return self.inception5b(self.inception5a(x, 32), 32)
+
+
+def googlenet(num_classes: int = 2, aux_logits: bool = True, **kwargs):
+    """Factory (reference: googlenet1.py:278-291): with the auxiliary
+    classifiers by default, as the reference's."""
+    return GoogLeNet(num_classes=num_classes, aux_logits=aux_logits, **kwargs)
 
 
 _FUSED_BRANCHES = ("branch1", "branch2.0", "branch3.0")

@@ -1,8 +1,17 @@
 """CMF triage: column profiles and systematics detection
-(reference: triage/cmf_profile.py, triage/COVID/*)."""
+(reference: triage/cmf_profile.py, triage/COVID/*).
 
-from .profile import (ANG_NCOLS, column_stats, flag_systematics, plot_stats,
-                      profile_files, summarize_cmf, systematics_count)
+The public names are the JAX package's ``triage``'s. They load on first
+use, so the systematics detector and the COVID oracle's report import no
+torch; the column statistics (``profile``) run on the device.
+"""
 
-__all__ = ["column_stats", "summarize_cmf", "systematics_count",
-           "flag_systematics", "profile_files", "plot_stats", "ANG_NCOLS"]
+from .._lazy import lazy_names as _lazy_names
+
+_NAMES = {
+    "profile": ("column_stats", "summarize_cmf", "profile_files", "plot_stats",
+                "ANG_NCOLS"),
+    "systematics": ("systematics_count", "flag_systematics", "load_systematics_list",
+                    "validate_systematics", "confusion_report"),
+}
+__getattr__, __dir__, __all__ = _lazy_names(__name__, _NAMES)

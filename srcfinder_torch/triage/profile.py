@@ -3,15 +3,9 @@
 Port of the JAX package's ``triage/profile.py`` (reference:
 triage/cmf_profile.py): per detector column of the CMF band,
 npix/avg/std/min/max (or robust npix/med/mad/p05/p95) over valid positive
-pixels, saved as ``*_column_stats.csv``; the systematics detector flags
-flightlines where the column-median profile deviates from its rolling
-median (triage/COVID/COVID_systematics_ID_Deliver.py:247-256):
-
-    hold = count( med - rollmed_3(med) > nsigma * meanAD(med) )
-
-where ``meanAD`` is the mean absolute deviation (pandas ``Series.mad()``,
-which the validator uses). A flightline is flagged when hold >= 1 (the
-validator rescales any count to 1, :258-262).
+pixels, saved as ``*_column_stats.csv``. The systematics detector
+(``systematics_count``, ``flag_systematics``) is host numpy in
+:mod:`.systematics`, re-exported here as the JAX package's module has it.
 
 The column reductions run as torch on the device; files are profiled in
 a thread pool (the reference uses a dask LocalCluster,
@@ -29,6 +23,8 @@ import torch
 
 from ..core import envi as envi_io
 from ..device import resolve_device
+# the detector is host numpy and lives where torch is not imported
+from .systematics import flag_systematics, systematics_count
 
 __all__ = ["column_stats", "summarize_cmf", "plot_stats", "systematics_count",
            "flag_systematics", "profile_files", "ANG_NCOLS"]
@@ -163,28 +159,6 @@ def plot_stats(cmff: str, colcsv: str, use_robust_stats=False,
     fig.savefig(colrwinf)
     plt.close(fig)
     return colfigf, colrwinf
-
-
-def _mean_abs_dev(x):
-    x = np.asarray(x, np.float64)
-    x = x[np.isfinite(x)]
-    return np.abs(x - x.mean()).mean() if x.size else np.nan
-
-
-def systematics_count(med, nadj_col: int = 3, nsigma_col: float = 3.0):
-    """Number of columns whose median exceeds the rolling median by
-    nsigma * meanAD (reference: COVID_systematics_ID_Deliver.py:247-256).
-    Rolling ends are NaN (centered window), matching pandas."""
-    ser = pd.Series(np.asarray(med, np.float64))
-    roll = ser.rolling(nadj_col, center=True).median()
-    sigma = _mean_abs_dev(ser.values)
-    return int(np.count_nonzero((ser - roll).values > nsigma_col * sigma))
-
-
-def flag_systematics(med, **kwargs) -> int:
-    """0/1 flag (the validator rescales counts > 1 to 1,
-    COVID_systematics_ID_Deliver.py:258-262)."""
-    return 1 if systematics_count(med, **kwargs) >= 1 else 0
 
 
 def profile_files(cmffiles, outdir=".", use_robust_stats=False, n_jobs=1,

@@ -553,9 +553,16 @@ def test_port_argv_maps_console_scripts_to_the_dispatcher():
     argv = tdeploy.port_argv(["srcfinder-inversion", "/g/trop_meta.csv"])
     assert argv == [sys.executable, "-m", "srcfinder_torch", "inversion", "/g/trop_meta.csv"]
     assert tdeploy.port_argv(["python", "-c", "pass"]) == ["python", "-c", "pass"]
-    for name in ("srcfinder-tagger", "srcfinder-nope"):
+    for name in ("srcfinder-", "srcfinder-nope"):
         with pytest.raises(ValueError, match=name):
             tdeploy.port_argv([name])
+
+
+@pytest.mark.parametrize("name", ["tagger", "collect-qc", "covid-oracle"])
+def test_port_argv_maps_the_qc_and_triage_scripts(name):
+    """The QC and triage scripts run through the dispatcher like the rest."""
+    argv = tdeploy.port_argv([f"srcfinder-{name}", "--help"])
+    assert argv == [sys.executable, "-m", "srcfinder_torch", name, "--help"]
 
 
 def test_default_runner_fails_unknown_scripts_in_the_queue(tmp_path):
@@ -567,13 +574,13 @@ def test_default_runner_fails_unknown_scripts_in_the_queue(tmp_path):
     (d / "a.dat").write_text("1")
     specs = {name: {"command": [script, "{path}"],
                     "trigger": {"regex": r".*\.dat$", "param": "path"}}
-             for name, script in (("tag", "srcfinder-tagger"), ("nope", "srcfinder-nope"),
+             for name, script in (("tag", "srcfinder-"), ("nope", "srcfinder-nope"),
                                   ("qc", "srcfinder-wind-qc"))}
     specs["qc"]["command"] = ["srcfinder-wind-qc", "-f", "{path}"]
     q, jobs = tdeploy.run_jobs(specs, str(d), once=True, force=True)
     assert len(jobs) == 3 and not q.results
     msgs = {job.job_type: str(err) for job, err in q.failures}
-    assert "not yet ported" in msgs["tag"]
+    assert "not a console script" in msgs["tag"]
     assert "srcfinder-nope" in msgs["nope"]
     assert isinstance(dict((j.job_type, e) for j, e in q.failures)["qc"],
                       subprocess.CalledProcessError)            # a.dat is no wind grid
@@ -797,7 +804,7 @@ def test_wind_mains_equal_jax(tmp_path, monkeypatch):
 # ----------------------------------------------------------------- dispatcher
 @pytest.mark.parametrize("name", sorted(tmain.COMMANDS))
 def test_dispatcher_names_resolve(name):
-    """Each of the 22 ported console scripts resolves to a callable main of
+    """Each of the 25 console scripts resolves to a callable main of
     the port, for a name of the JAX package's pyproject.toml."""
     module, func = tmain.COMMANDS[name].split(":")
     assert module.startswith("srcfinder_torch.")
@@ -810,14 +817,14 @@ def test_dispatcher_covers_the_console_scripts():
                    if line.startswith("srcfinder-")]
     assert len(scripts) == 25
     names = {s[len("srcfinder-"):] for s in scripts}
-    assert names == set(tmain.COMMANDS) | set(tmain.NOT_PORTED)
-    assert len(tmain.COMMANDS) == 22 and not set(tmain.COMMANDS) & set(tmain.NOT_PORTED)
+    assert names == set(tmain.COMMANDS)
+    assert len(tmain.COMMANDS) == 25
 
 
-@pytest.mark.parametrize("argv,expect", [([], "names:"), (["tagger"], "not yet ported"),
+@pytest.mark.parametrize("argv,expect", [([], "names:"), (["srcfinder-cmf"], "unknown command"),
                                          (["nope"], "unknown command")])
 def test_dispatcher_exits_2_without_the_jax_package(argv, expect):
-    """No name, a name not yet ported, an unknown name: exit 2, a message,
+    """No name, a console script's full name, an unknown name: exit 2, a message,
     and no import of jax or srcfinder_tpu (every import, traced)."""
     env = dict(os.environ, PYTHONPATH=ROOT, PYTHONPROFILEIMPORTTIME="1")
     out = subprocess.run([sys.executable, "-m", "srcfinder_torch", *argv], env=env,

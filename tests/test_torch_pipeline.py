@@ -214,7 +214,13 @@ def test_pipeline_imports_no_jax():
             "srcfinder_torch.flow.cluster, srcfinder_torch.flow.dedup, "
             "srcfinder_torch.flow.persistence, srcfinder_torch.flow.inversion, "
             "srcfinder_torch.flow.wind_export, srcfinder_torch.flow.harvester, "
-            "srcfinder_torch.flow.stage_clis, srcfinder_torch.__main__; "
+            "srcfinder_torch.flow.stage_clis, srcfinder_torch.__main__, "
+            "srcfinder_torch.triage, srcfinder_torch.triage.systematics, "
+            "srcfinder_torch.triage.covid, srcfinder_torch.qc.session, "
+            "srcfinder_torch.qc.collect, srcfinder_torch.qc.collect_cli, "
+            "srcfinder_torch.qc.gtif, srcfinder_torch.qc.webapp, srcfinder_torch.cmf, "
+            "srcfinder_torch.detect, srcfinder_torch.masks, srcfinder_torch.models, "
+            "srcfinder_torch.models.convert; "
             "assert 'flax' not in sys.modules, 'flax'; "
             "assert 'optax' not in sys.modules, 'optax'; "
             "assert 'orbax' not in sys.modules, 'orbax'; "

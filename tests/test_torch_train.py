@@ -45,7 +45,6 @@ from srcfinder_tpu.train import data as jdata
 from srcfinder_tpu.train import sam as jsam
 from srcfinder_torch.core import geotiff as tgeotiff
 from srcfinder_torch.models import convert
-from srcfinder_torch.models import googlenet as tgooglenet
 from srcfinder_torch.models.googlenet import GoogLeNet
 from srcfinder_torch.train import cli as tcli
 from srcfinder_torch.train import data as tdata
@@ -54,6 +53,7 @@ from test_train import _TorchSAM
 
 jtrain = importlib.import_module("srcfinder_tpu.train.train")
 ttrain = importlib.import_module("srcfinder_torch.train.train")
+tgooglenet = importlib.import_module("srcfinder_torch.models.googlenet")
 
 torch.set_num_threads(1)
 
