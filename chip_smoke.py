@@ -46,6 +46,17 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    ppm*m above background, saliency in [0, 1] with nodata stamped, plume
    list and IME CSV written) and prints stage seconds and peak device
    memory.
+4a. The host runtime ("native" line; it runs right after phase 4, on its
+   radiance and products): srcfinder_torch/ops/csrc/native.cpp built by
+   the host's c++ (seconds, compiler version), then each function against
+   its plain version on the host with the host seconds of both: the BIL
+   repack of the CMF's active window (72 bands) over all 598 columns from
+   a read-only memmap of the radiance, bit-equal to the numpy slice,
+   transpose and cast; label8 of the masks the salience stage labels
+   (saliency > the run's prob_thr 0, ppm*m > 250) and of a seeded 12,000 x
+   598 mask at density 0.5, id for id against imlabel; LZW encode and
+   decode of a 256 x 256 x 4 f32 tile and of the 2801 x 598 CMF band,
+   bytes equal to the pure-Python codec's and round-tripping.
 4b. The multimodal CMF ("multimodal" line): the same recipe with two
    background modes (the first half of the lines raised by MODE_OFFSET),
    through run_flightline(bgmodes=2) with IME, its K1/K2 launches counted
@@ -86,8 +97,8 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
 4e. The trainer (phase_train, "train" line; it runs after 4d) at
    srcfinder-train's full width: a seeded campaign of 64 uncompressed
    256 x 256 x 4 GeoTIFF tiles (CH4 in band 4, plume blobs on the positives; train.csv 48,
-   test.csv 16) and one LZW tile read and written on its own (the pure-
-   Python codec, timed); srcfinder_torch.train.cli.main in this process
+   test.csv 16) and one LZW tile read and written on its own (the native
+   codec, timed); srcfinder_torch.train.cli.main in this process
    (GoogLeNet-1ch with aux heads, crop 256, batch 16, SAM, 2 epochs,
    CalCH4_v8), its hand-kernel counters zeroed just before and read just
    after (none is on this path); finite losses, the CSVs, metrics.json, no
@@ -154,7 +165,9 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    table, which reaches every rule, a flightline rejected by a flag and a
    conflict resolved to ambiguous. The tagger and collect-qc import no
    torch. Prints start seconds, the median ms per endpoint, /img ms fitted
-   and zoomed, the precache's and collect-qc's seconds.
+   and zoomed, the precache's and collect-qc's seconds, and the precache
+   of the 6 products in this process in turns by precache_gtifs' threads
+   and by 4 spawned processes (the seconds of each run).
 5. The exact dense CNN's trunk kernels (fused_stage12, trunk_s23,
    trunk_s3, trunk_s45) against their plain versions, on windows of 256 x
    256 gathered from a 16-line strip cut through the plume of the scene's
@@ -200,14 +213,14 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    within PATH_TOL on the interior (pixels at least DILATED_REACH from
    every image edge, out of reach of every canvas edge), the whole map's
    largest gap and its row and column reported with the largest gap past
-   each margin from the edges; the dilated pass in bf16, and in f32 at
-   the largest scene its canvas ceiling admits (3,647 lines), whose peak
-   must stay under the card's memory and whose seconds per canvas pixel
-   must stay within DILATED_SLOWDOWN of the 2801-line pass's (past the
-   ceiling the card runs short of convolution workspace and the pass
-   slows ~13x); the dilated pass against the phase
-   pass within BF16_TOL over the whole map with the weights the JAX
-   package's bound holds for (init-time convs, BatchNorm perturbed).
+   each margin from the edges; the dilated pass in bf16; the dilated pass
+   in line windows (DILATED_WINDOWS windows of block DILATED_BLOCK on the
+   band's 2,880-line canvas, the real 448-line halo) against the one pass,
+   in f32 within PATH_TOL and in bf16 within BF16_TOL; the dilated pass
+   against the phase pass within BF16_TOL over the whole map with the
+   weights the JAX package's bound holds for (init-time convs, BatchNorm
+   perturbed). Returns the one-pass f32 dilated pass's seconds per canvas
+   pixel.
 8. A real-length flightline: a seeded 12,000 x 598 x 425 f32 BIL radiance
    (12.2 GB; the 2801-line radiance is deleted first) with a methane
    plume, nodata pixels, and a saturated, a specular, a cloud and a dark
@@ -216,7 +229,14 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    FCN through the halo-blocked path (3 windows of 5,824 lines). Checks
    the plume's z, the route and windows, that each mask band is
    non-empty and equal to masks_for_flightline on the CPU over the same
-   file, that K1/K2 launched, and K1/K2 at this chunk shape (12,000 x 256
+   file, that K1/K2 launched, fcn_saliency_image(method="dilated") on the
+   CMF band (its default windows: 5 of 3,328 canvas lines), with the run's
+   weights against the run's saliency and with the trained-like weights
+   against the blocked phase pass with them, each within PATH_TOL at
+   DILATED_REACH from every edge, nodata stamped alike, each window's
+   peak under the card's memory, its seconds per canvas pixel within
+   DILATED_SLOWDOWN of phase 7's one pass (windows, seconds and peaks
+   printed), and K1/K2 at this chunk shape (12,000 x 256
    x 72, f32) against their plain versions (TOL, repeats bit-identical);
    prints stage seconds, the fused read+masks phase by part (disk reads
    and slab taps in the reader thread; pixel tests, host growth and block
@@ -347,7 +367,13 @@ PATH_TOL, BF16_TOL = 1e-5, 2e-2
 DILATED_REACH = 224
 EDGE_MARGINS = (0, 16, 32, 64, 96, 128, 160, 192, 224, 256)
 CARD_BYTES = 80e9
+# the windowed dilated pass (phases 7 and 8): its seconds per canvas pixel
+# within DILATED_SLOWDOWN of the one-pass 2801-line pass's; phase 7 forces
+# blocks of DILATED_BLOCK canvas lines, DILATED_WINDOWS windows of the
+# band's 2,880-line canvas (928, the blocked phase path's block over 2,784
+# image lines, would take 4 here)
 DILATED_SLOWDOWN = 3.0
+DILATED_BLOCK, DILATED_WINDOWS = 960, 3
 # the two-mode scene (phase 4b): the first half of the lines raised in every
 # band by the offset of tests/test_cmf_pipeline.py:259; k-means must find
 # the two halves (label agreement up to a swap) in every column; the f32
@@ -1031,7 +1057,87 @@ def phase_main_path(workdir):
                    ime_rows=len(ime))
     print(json.dumps({"main_path": summary}))
     profile_stages(rdn, libf, wf, prods["cmf"], workdir)
-    return launches, prods["cmf"], rdn, libf
+    return launches, prods, rdn, libf
+
+
+def _host_s(fn, reps=1):
+    """(result, host seconds of the fastest of ``reps`` calls of ``fn``)."""
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return out, best
+
+
+def phase_native(workdir, rdn, libf, prods):
+    """The host runtime (phase 4a, "native" line; it runs right after phase 4,
+    on its radiance and products): the library's build, then each function
+    against its plain version on the host at the main path's sizes, with the
+    host seconds of both in this call."""
+    import numpy as np
+    from srcfinder_torch.cmf.pipeline import active_range_for_library
+    from srcfinder_torch.core import native
+    from srcfinder_torch.core.envi import open_envi
+    from srcfinder_torch.core.geotiff import _lzw_decode_py, _lzw_encode_py
+    from srcfinder_torch.ops import build
+
+    prebuilt = os.path.exists(native.LIBRARY.lib_path())
+    t0 = time.time()
+    build.build_all([native.LIBRARY])
+    summary = dict(build_s=time.time() - t0, prebuilt=prebuilt,
+                   compiler=subprocess.run(["c++", "--version"], capture_output=True,
+                                           text=True).stdout.splitlines()[0],
+                   flags=" ".join(build.CXX_FLAGS), have_native=native.HAVE_NATIVE)
+    checks = {}
+
+    # the CMF's active window over every column, from the radiance's memmap
+    nl, ns, nb = SCENE
+    mm = np.memmap(rdn, np.float32, "r", shape=(nl, nb, ns))
+    a0, a1 = active_range_for_library(libf)
+    plain, plain_s = _host_s(lambda: native.bil_window_to_lcb_plain(mm, a0 - 1, a1, 0, ns), 2)
+    got, native_s = _host_s(lambda: native.bil_window_to_lcb(mm, a0 - 1, a1, 0, ns), 2)
+    checks["repack"] = np.array_equal(got, plain)
+    summary["repack"] = dict(shape=list(got.shape), native_s=native_s, plain_s=plain_s,
+                             bit_equal=checks["repack"])
+    del mm, got, plain
+
+    # label8 of the masks the salience stage labels (the main path's
+    # prob_thr 0 and the CLI's ppm*m threshold 250) and of a seeded
+    # 12,000 x 598 mask at density 0.5, id for id against imlabel
+    sal = open_envi(prods["saliency"]).load()[..., 0]
+    ppmm = np.ascontiguousarray(open_envi(prods["cmf"]).load()[..., 3])
+    masks = {"saliency_gt_0": sal > 0.0, "cmf_gt_250": ppmm > 250.0,
+             "seeded_12000_d0.5": np.random.default_rng(12000).random((12000, ns)) < 0.5}
+    summary["label8"] = {}
+    for name, m in masks.items():
+        ref, plain_s = _host_s(lambda: native.label8_plain(m), 2)
+        got, native_s = _host_s(lambda: native.label8(m), 2)
+        checks[f"label8_{name}"] = np.array_equal(got, ref)
+        summary["label8"][name] = dict(shape=list(m.shape), components=int(got.max()),
+                                       native_s=native_s, plain_s=plain_s,
+                                       ids_equal=checks[f"label8_{name}"])
+
+    # LZW: one training tile and the CMF band, native bytes against the
+    # pure-Python codec's
+    tile = np.abs(np.random.default_rng(256).normal(0, 200, (256, 256, 4))).astype(np.float32)
+    summary["lzw"] = {}
+    for name, arr in (("tile_256x256x4_f32", tile), ("cmf_band_2801x598_f32", ppmm)):
+        data = arr.tobytes()
+        enc, enc_s = _host_s(lambda: native.lzw_encode(data), 3)
+        dec, dec_s = _host_s(lambda: native.lzw_decode(enc, len(data)), 3)
+        penc, penc_s = _host_s(lambda: _lzw_encode_py(data))
+        pdec, pdec_s = _host_s(lambda: _lzw_decode_py(penc))
+        checks[f"lzw_{name}"] = enc == penc and dec == data and pdec == data
+        summary["lzw"][name] = dict(bytes=len(data), compressed=len(enc), encode_s=enc_s,
+                                    decode_s=dec_s, plain_encode_s=penc_s,
+                                    plain_decode_s=pdec_s, bytes_equal=enc == penc,
+                                    round_trip=dec == data)
+    print(json.dumps({"native": summary}))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"native: {bad} differ from their plain versions")
 
 
 def write_wind_grids(winddir):
@@ -2186,17 +2292,42 @@ def tagger_season_check(root, env):
     if any(m.split(".")[0] == "torch" for p in procs for m in p["modules"]):
         fail("collect-qc imported torch")
     merge = check_merge(season, prefix)
+    modes = precache_modes([os.path.join(season["data"], n) for n in season["names"]], root)
     img = {k: float(np.median(ms["GET /img"][i::2])) for i, k in enumerate(("fit", "zoom"))}
     return dict(users=len(TQ_USERS), flightlines=TQ_FLIGHTLINES, candidates=TQ_CANDIDATES,
                 scene=list(SCENE[:2]), setup_s=setup_s, start_s=starts, session_s=session_s,
                 stop_s=stop_s,
                 precache_s=starts[TQ_USERS[0]] - starts[TQ_USERS[2]],
+                precache_in_process_s=modes,
                 imports_s=imports, collect_qc_s=collect_s,
                 collect_qc_imports_s=procs[0]["imports_s"], png_sizes=sorted(sizes),
                 click_max_px=max(dists), img_ms=img, gtifs=len(cached),
                 endpoint_ms={k: float(np.median(v)) for k, v in sorted(ms.items())},
                 requests=sum(len(v) for v in ms.values()), merge=merge,
                 check_s=time.time() - t_all)
+
+
+def precache_modes(imgfs, root):
+    """The tagger's precache of ``imgfs`` in this process, in turns: threads
+    (precache_gtifs, 4 workers) and spawned processes (4, the port's
+    workers before the native codec), each into a cache of its own.
+    Returns the seconds of each run by mode."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from functools import partial
+    from srcfinder_torch.qc.gtif import img_to_gtif, precache_gtifs
+    out = {}
+    for i, mode in enumerate(("threads", "processes", "processes", "threads")):
+        cache = os.path.join(root, f"gtif_{mode}_{i}")
+        t0 = time.time()
+        if mode == "threads":
+            precache_gtifs(imgfs, cache)
+        else:
+            with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn")) as pool:
+                list(pool.map(partial(img_to_gtif, outdir=cache), imgfs))
+        out.setdefault(mode, []).append(time.time() - t0)
+        shutil.rmtree(cache)
+    return out
 
 
 def phase_triage_qc(workdir):
@@ -2919,14 +3050,17 @@ def phase_fcn_paths(workdir, cmf_product, cnn_weights):
                          torch.minimum(cols, w - 1 - cols)[None, :])
     by_margin = {m: gap[edge >= m].max().item() for m in EDGE_MARGINS}
     worst = divmod(gap.argmax().item(), w)
-    # the largest scene the dilated path admits at this width, held to the card
-    lines = max(n for n in range(h, 2 * h)
-                if tfp._canvas_px(n, w, 32) <= tfp.MAX_DILATED_CANVAS_PX)
-    big = torch.cat([x, x[:lines - h]])
-    torch.cuda.empty_cache()
-    big_sal = _timed(stats, f"dilated_f32_{lines}",
-                     lambda: tfp.fcn_dilated_saliency(model, big))
-    del big
+    # the windowed dilated pass, forced to DILATED_BLOCK, in f32 and bf16
+    windows = []
+    probs = tfp._dilated_probs
+    tfp._dilated_probs = lambda m, c: windows.append(c.shape[0]) or probs(m, c)
+    try:
+        windowed = _timed(stats, f"dilated_f32_block{DILATED_BLOCK}",
+                          lambda: tfp.fcn_dilated_saliency(model, x, block=DILATED_BLOCK))
+        windowed16 = _timed(stats, f"dilated_bf16_block{DILATED_BLOCK}",
+                            lambda: tfp.fcn_dilated_saliency(model16, x16, block=DILATED_BLOCK))
+    finally:
+        tfp._dilated_probs = probs
     jmodel = tfp.load_saliency_model(_jax_test_weights(workdir), device="cuda")
     jphase = tfp.fcn_phase_saliency(jmodel, x)
     jdilated = _timed(stats, "dilated_f32_jax_test_weights",
@@ -2934,9 +3068,6 @@ def phase_fcn_paths(workdir, cmf_product, cnn_weights):
 
     def diff(a, b):
         return (a.float() - b.float()).abs().max().item()
-    # seconds per canvas pixel at the ceiling over those of the full band
-    slowdown = (stats[f"dilated_f32_{lines}"]["s"] / tfp._canvas_px(lines, w, 32)) / (
-        stats["dilated_f32"]["s"] / tfp._canvas_px(h, w, 32))
     checks = {
         "blocked_vs_unblocked": (diff(blocked, unblocked), PATH_TOL),
         "bf16_vs_f32": (diff(bf16, phase), BF16_TOL),
@@ -2944,6 +3075,8 @@ def phase_fcn_paths(workdir, cmf_product, cnn_weights):
         "scan_vs_wide": (diff(scan, phase), PATH_TOL),
         "dilated_vs_phase_interior": (by_margin[DILATED_REACH], PATH_TOL),
         "dilated_bf16_vs_f32": (diff(dilated16, dilated), BF16_TOL),
+        "dilated_windowed_vs_one_pass": (diff(windowed, dilated), PATH_TOL),
+        "dilated_bf16_windowed_vs_one_pass": (diff(windowed16, dilated16), BF16_TOL),
         "dilated_vs_phase_jax_test_weights": (diff(jdilated, jphase), BF16_TOL)}
     saliency_std = {"trained_like": phase.std().item(), "jax_test_weights": jphase.std().item()}
     print(json.dumps({"fcn_paths": dict(
@@ -2951,9 +3084,9 @@ def phase_fcn_paths(workdir, cmf_product, cnn_weights):
         max_abs_diff={k: {"diff": d, "bound": t} for k, (d, t) in checks.items()},
         dilated_vs_phase=dict(max_abs_diff_past_edge_margin=by_margin,
                               worst_row_col=list(worst), interior_margin=DILATED_REACH),
-        dilated_ceiling=dict(lines=lines, canvas_px=tfp._canvas_px(lines, w, 32),
-                             ceiling_px=tfp.MAX_DILATED_CANVAS_PX,
-                             slowdown_per_canvas_px=slowdown),
+        dilated_windows=dict(block=DILATED_BLOCK, window_lines=windows,
+                             canvas=list(tfp._canvas(x, 32).shape),
+                             window_px=tfp.DILATED_WINDOW_PX),
         saliency_std=saliency_std)}))
     for k, (d, t) in checks.items():
         if not d <= t:
@@ -2961,18 +3094,16 @@ def phase_fcn_paths(workdir, cmf_product, cnn_weights):
     for k, v in saliency_std.items():
         if not v > 1e-3:
             fail(f"fcn_paths: the {k} saliency is near constant (std {v:.3g})")
-    peak = stats[f"dilated_f32_{lines}"]["peak_mem_bytes"]
-    if not peak < CARD_BYTES:
-        fail(f"fcn_paths: the dilated pass at its ceiling ({lines} lines) peaked "
-             f"at {peak / 1e9:.1f} GB")
-    if not slowdown < DILATED_SLOWDOWN:
-        fail(f"fcn_paths: the dilated pass at its ceiling ({lines} lines) is "
-             f"{slowdown:.1f}x slower per canvas pixel than at {h} lines")
+    if len(windows) != 2 * DILATED_WINDOWS:
+        fail(f"fcn_paths: the windowed dilated passes ran windows of {windows} lines, "
+             f"not {DILATED_WINDOWS} each")
     for name, sal in (("blocked", blocked), ("bf16", bf16), ("batch", batch),
                       ("scan", scan), ("dilated", dilated), ("dilated_bf16", dilated16),
-                      (f"dilated_{lines}", big_sal)):
+                      ("dilated_windowed", windowed), ("dilated_bf16_windowed", windowed16)):
         if not torch.isfinite(sal).all():
             fail(f"fcn_paths {name}: saliency not finite")
+    # the one-pass dilated f32 pass's seconds per canvas pixel (phase 8's yardstick)
+    return stats["dilated_f32"]["s"] / tfp._canvas(x, 32).numel()
 
 
 def write_long_scene(workdir, gen):
@@ -3128,7 +3259,77 @@ def reader_times(rdn, libf, step=500):
                 default_mode=open_envi(rdn + ".hdr")._direct().mode)
 
 
-def phase_long_flightline(workdir, libf, wf):
+def long_dilated(ppmm, sal, wf, cnn_weights, one_pass_s_per_px):
+    """The dilated path over the whole 12,000-line CMF band through
+    fcn_saliency_image (phase 8): in line windows, each one's lines, seconds
+    and peak device memory recorded; with the run's weights against the
+    run's blocked phase saliency, and with the trained-like weights against
+    the blocked phase pass with them, both on the interior (DILATED_REACH
+    from every edge). Returns (summary, {check: (diff, bound)})."""
+    import numpy as np
+    import torch
+    from srcfinder_torch.detect import fcn_pipeline as tfp
+
+    band = np.ascontiguousarray(ppmm)
+    h, w = band.shape
+    inner = (slice(DILATED_REACH, h - DILATED_REACH), slice(DILATED_REACH, w - DILATED_REACH))
+    windows, seconds, maps = [], {}, {}
+    probs = tfp._dilated_probs
+
+    def timed_window(m, c):
+        st = {}
+        out = _timed(st, "w", lambda: probs(m, c))
+        windows.append(dict(lines=c.shape[0], **st["w"]))
+        return out
+
+    def run(weights, method):
+        model = tfp.load_saliency_model(weights, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = tfp.fcn_saliency_image(band, model, method=method).cpu().numpy()
+        return out, time.time() - t0
+
+    torch.cuda.empty_cache()
+    tfp._dilated_probs = timed_window
+    try:
+        for tag, weights in (("run_weights", wf), ("trained_like", cnn_weights)):
+            maps[tag], seconds[f"dilated_{tag}"] = run(weights, "dilated")
+    finally:
+        tfp._dilated_probs = probs
+    blocked, seconds["phase_blocked_trained_like"] = run(cnn_weights, "phase-blocked")
+    canvas_px = tfp._canvas(torch.empty(h, w, device="meta"), 32).numel()
+    slowdown = seconds["dilated_trained_like"] / canvas_px / one_pass_s_per_px
+    nodata = sal == -9999.0
+    checks = {
+        "dilated_vs_run_saliency_interior": (
+            float(np.abs(maps["run_weights"][inner] - sal[inner]).max()), PATH_TOL),
+        "dilated_vs_phase_blocked_trained_like_interior": (
+            float(np.abs(maps["trained_like"][inner] - blocked[inner]).max()), PATH_TOL)}
+    summary = dict(canvas_px=canvas_px, windows=windows, seconds=seconds,
+                   s_per_canvas_px=seconds["dilated_trained_like"] / canvas_px,
+                   one_pass_s_per_canvas_px=one_pass_s_per_px, slowdown=slowdown,
+                   saliency_std={k: float(v[~nodata].std()) for k, v in maps.items()},
+                   max_abs_diff={k: {"diff": d, "bound": t} for k, (d, t) in checks.items()})
+    rows, cols = tfp._canvas(torch.empty(h, w, device="meta"), 32).shape
+    block = tfp._dilated_block(rows, cols, 32)
+    n = sum(max(r0, 17) < min(r0 + block, 17 + h) for r0 in range(0, rows, block))
+    if len(windows) != 2 * n or len({wd["lines"] for wd in windows}) != 1:
+        fail(f"long flightline: the dilated path ran windows {windows}, not 2 x {n}")
+    if not max(wd["peak_mem_bytes"] for wd in windows) < CARD_BYTES:
+        fail("long flightline: a dilated window peaked over the card's memory")
+    if not slowdown < DILATED_SLOWDOWN:
+        fail(f"long flightline: the windowed dilated pass is {slowdown:.2f}x slower per "
+             f"canvas pixel than the one-pass 2801-line pass")
+    for k, v in maps.items():
+        if not np.array_equal(v == -9999.0, nodata) or not np.isfinite(v).all():
+            fail(f"long flightline: the dilated map ({k}) is not finite or stamps nodata "
+                 f"elsewhere than the run's saliency")
+    if not summary["saliency_std"]["trained_like"] > 1e-3:
+        fail("long flightline: the trained-like dilated saliency is near constant")
+    return summary, checks
+
+
+def phase_long_flightline(workdir, libf, wf, cnn_weights, one_pass_s_per_px):
     """A real-length flightline through run_flightline with the masks and
     IME (phase 8). Returns the K1/K2 checks at its chunk shape."""
     import numpy as np
@@ -3194,6 +3395,7 @@ def phase_long_flightline(workdir, libf, wf):
     ref = open_envi(os.path.join(workdir, ref_name)).load()
     positives = {name: int((masks[..., i] > 0).sum())
                  for i, name in enumerate(("cloud", "specular", "flare", "dark"))}
+    dilated, dilated_checks = long_dilated(ppmm, sal, wf, cnn_weights, one_pass_s_per_px)
 
     # the unblocked phase pass at the pixel ceiling: its peak device memory
     ceiling = tfp.MAX_UNBLOCKED_PX // ns // 32 * 32
@@ -3220,7 +3422,7 @@ def phase_long_flightline(workdir, libf, wf):
         run_s=total_s, stage_s=prods["timers"],
         read_masks_parts=prods.get("read+masks parts"), readers=readers,
         fcn_method="phase-blocked" if seen["blocked"] else "unblocked",
-        fcn_windows=seen["windows"], peak_mem_bytes=peak, plume_z=float(z),
+        fcn_windows=seen["windows"], dilated=dilated, peak_mem_bytes=peak, plume_z=float(z),
         plume_ppmm=float(plume), background_ppmm=float(bg), background_sd=float(bg_sd),
         n_candidates=len(pd.read_csv(prods["detections_csv"])),
         ime_rows=len(pd.read_csv(prods["ime_csv"])),
@@ -3235,6 +3437,9 @@ def phase_long_flightline(workdir, libf, wf):
              f"{[w['lines'] for w in seen['windows']]}, not 3 windows of 5824 lines")
     if not peak < 80e9:
         fail(f"peak device memory {peak / 1e9:.1f} GB")
+    for k, (d, t) in dilated_checks.items():
+        if not d <= t:
+            fail(f"long flightline {k}: max |diff| {d:.3g} > {t:g}")
     if not z > 10:
         fail(f"long flightline: plume z = {z:.1f}")
     for k, n in launches.items():
@@ -3425,7 +3630,7 @@ def phase_train(workdir):
     last_tile = write_campaign(root)
     summary = dict(tiles=TRAIN_TILES, side=TRAIN_SIDE, batch=TRAIN_BATCH,
                    campaign_write_s=time.time() - t0)
-    # the pure-Python LZW codec on one tile, timed on its own
+    # the LZW codec on one tile, timed on its own
     lzw = os.path.join(workdir, "lzw_tile.tif")
     t0 = time.time()
     write_geotiff(lzw, last_tile, compress="lzw")
@@ -4234,8 +4439,10 @@ def main():
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
-        flightline, cmf_product, rdn, libf = phase_main_path(workdir)
+        flightline, main_prods, rdn, libf = phase_main_path(workdir)
+        cmf_product = main_prods["cmf"]
         launches = {k: ("run_flightline", n) for k, n in flightline.items()}
+        phase_native(workdir, rdn, libf, main_prods)
         phase_postproc(workdir, cmf_product)
         phase_train(workdir)
         winds_launches = phase_winds(workdir, rdn, libf, cmf_product)
@@ -4247,11 +4454,12 @@ def main():
         cnn_weights = write_cnn_weights(workdir)
         checks.update(phase_trunk_kernels(strip, cnn_weights))
         launches.update(phase_exact_cnn(workdir, strip, cnn_weights))
-        phase_fcn_paths(workdir, cmf_product, cnn_weights)
+        dilated_s_per_px = phase_fcn_paths(workdir, cmf_product, cnn_weights)
         mg_launches = phase_multigpu(workdir, rdn, libf, cmf_product, strip, cnn_weights)
         for f in (rdn, rdn + ".hdr"):          # bound the disk use
             os.remove(f)
-        checks.update(phase_long_flightline(workdir, libf, write_weights(workdir)))
+        checks.update(phase_long_flightline(workdir, libf, write_weights(workdir), cnn_weights,
+                                            dilated_s_per_px))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -4,9 +4,10 @@ writer, all numpy; and the block prefetcher, which stages host blocks
 onto the device.
 
 The public names are the JAX package's ``core``'s, but for
-``prefetch_to_device`` and the native extension's, which the port does
-not carry. They load on first use, so a process imports the modules it
-uses only (torch with the prefetcher).
+``prefetch_to_device``, which the port does not carry; ``HAVE_NATIVE``,
+``bil_window_to_lcb`` and ``label8`` are the port's own C++ host runtime
+(``native``). They load on first use, so a process imports the modules
+it uses only (torch with the prefetcher).
 """
 
 from .._lazy import lazy_names as _lazy_names
@@ -31,5 +32,6 @@ _NAMES = {
                 "loadsaliencemap", "load_plumedf", "parse_masks", "mask2rgb", "absnorm",
                 "smoothbil"),
     "prefetch": ("BlockPrefetcher",),
+    "native": ("HAVE_NATIVE", "bil_window_to_lcb", "label8"),
 }
 __getattr__, __dir__, __all__ = _lazy_names(__name__, _NAMES)

@@ -13,10 +13,10 @@ rule). The reader round-trips them and reads other contiguous TIFFs
 (compression none/LZW, horizontal predictor supported).
 
 Port of the JAX package's ``core/geotiff.py``: the same bytes for the same
-array, tags and compression. The codec is the pure-Python LZW only (the
-JAX package's native LZW of ``native/enviio.cpp`` is not carried over), so
-an LZW tile costs interpreter time: training data reads fastest from
-uncompressed tiles.
+array, tags and compression. Every LZW strip, written or read, goes
+through the port's native codec (:mod:`.native`), which releases the
+interpreter lock; ``_lzw_encode_py`` and ``_lzw_decode_py`` are its plain
+versions, which the tests hold it to.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+from .native import lzw_decode, lzw_encode
 
 __all__ = ["write_geotiff", "read_geotiff", "mapinfo_to_geotransform"]
 
@@ -205,7 +207,7 @@ def write_geotiff(path, arr, mapinfo=None, nodata=None, compress=None,
         raise ValueError(f"unsupported compression {compress!r}")
     lzw = compress == "lzw"
     if lzw:
-        data = _lzw_encode_py(data)
+        data = lzw_encode(data)
 
     entries = []          # (tag, type, count, value_or_bytes)
 
@@ -347,7 +349,10 @@ def read_geotiff(path):
     counts = (counts,) if isinstance(counts, int) else counts
     strips = [blob[o:o + c] for o, c in zip(offsets, counts)]
     if comp == 5:
-        strips = [_lzw_decode_py(s) for s in strips]
+        rows = val(278, h)
+        row_bytes = w * bands * dt.itemsize
+        strips = [lzw_decode(s, max(0, min(rows, h - i * rows)) * row_bytes)
+                  for i, s in enumerate(strips)]
     buf = b"".join(strips)
     arr = np.frombuffer(buf, dt).reshape(h, w, bands)
     predictor = val(317, 1)

@@ -37,9 +37,9 @@ def build_parser():
                            "SRCFINDER_FCN_MAX_LINES lines or SRCFINDER_FCN_MAX_PX "
                            "pixels), shift (per-shift batches), phase, "
                            "phase-blocked (halo-exact line windows), dilated "
-                           "(one dense pass, ~25 KB of device memory per pixel: "
-                           "refused past a 2.5 Mpx canvas, 3,647 lines at "
-                           "width 598)")
+                           "(one dense pass, ~25 KB of device memory per pixel; "
+                           "halo-exact line windows past a 2.5 Mpx canvas, "
+                           "3,647 lines at width 598)")
         elif action.dest == "flightline":
             action.nargs = "+"
             action.help = "Flightline ENVI IMG path(s)"

@@ -17,7 +17,8 @@ cnn/fcn_pred_pipeline.py:73-95). Two evaluations of the same result:
   through one scan-layout pass, and :func:`fcn_phase_saliency_blocked`
   runs a long flightline as line windows with an exact halo;
 - :func:`fcn_dilated_saliency`: the same output from one dense a-trous
-  trunk pass.
+  trunk pass, or from halo-exact line windows of the canvas past
+  :data:`DILATED_WINDOW_PX`.
 
 The convolutions go to cuDNN through ``torch.nn.functional.conv2d``; the
 phase translate and the stitch are plain tensor ops.
@@ -59,14 +60,15 @@ WINDOW_BUDGET_PX = 3_500_000
 #: rounded up to the 32-line phase grid.
 TRUNK_HALO = 448
 
-#: Ceiling of the dilated path's canvas (the scene padded to the 32-line
-#: grid plus ``scale`` on each side), in pixels: its dense pass holds
-#: full-resolution maps of up to 832 channels, ~25 KB per canvas pixel in
-#: f32 (48.35 GB at 2801 x 598, a 2880 x 672 canvas, on an H100 80GB).
-#: Past ~2.5 M canvas pixels (~62 GB) the pass still fits but runs ~13x
-#: slower, as the card runs short of convolution workspace. At width 598
-#: the ceiling admits 3,647 lines.
-MAX_DILATED_CANVAS_PX = 2_500_000
+#: Pixel budget of one canvas pass of the dilated path (a canvas is the
+#: scene padded to the 32-line grid plus ``scale`` on each side): the dense
+#: pass holds full-resolution maps of up to 832 channels, ~25 KB per canvas
+#: pixel in f32 (48.35 GB at 2801 x 598, a 2880 x 672 canvas, on an H100
+#: 80GB; 62.29 GB and full speed at 3,647 lines, 2.49 M pixels). Past ~2.5
+#: M pixels the pass still fits but runs ~13x slower, as the card runs short
+#: of convolution workspace. A larger canvas runs as line windows of at most
+#: this many pixels (:func:`fcn_dilated_saliency`).
+DILATED_WINDOW_PX = 2_500_000
 
 #: Parent maps per step of the scan layout at stages 1, 2, 3 and 4+5.
 SCAN_CHUNKS = (2, 4, 8, 1)
@@ -84,11 +86,6 @@ def unblocked_limits():
     environment's SRCFINDER_FCN_MAX_LINES and SRCFINDER_FCN_MAX_PX."""
     return (int(os.environ.get("SRCFINDER_FCN_MAX_LINES", MAX_UNBLOCKED_LINES)),
             int(os.environ.get("SRCFINDER_FCN_MAX_PX", MAX_UNBLOCKED_PX)))
-
-
-def _canvas_px(h: int, w: int, scale: int) -> int:
-    """Pixels of :func:`_canvas` for an (h, w) image."""
-    return (h + scale - h % scale + 2 * scale) * (w + scale - w % scale + 2 * scale)
 
 
 def _auto_block(width: int, scale: int) -> int:
@@ -434,9 +431,28 @@ def fcn_phase_saliency_blocked(model: GoogLeNet, img, scale: int = 32,
     return out[:h0]
 
 
+def _dilated_block(rows: int, cols: int, scale: int) -> int:
+    """Default block of the windowed dilated pass over a ``rows`` x
+    ``cols`` canvas: the fewest windows of at most
+    :data:`DILATED_WINDOW_PX` pixels, their blocks balanced and rounded up
+    to the ``scale``-line grid (12,096 canvas rows at width 598: 5 blocks of
+    2,432, windows of 3,328 lines, 2.24 M pixels)."""
+    most = max(scale, (DILATED_WINDOW_PX // cols) // scale * scale - 2 * TRUNK_HALO)
+    per = -(-rows // -(-rows // most))          # ceil(rows / fewest windows)
+    return -(-per // scale) * scale
+
+
+def _dilated_probs(model: GoogLeNet, canvas):
+    """Class-1 probability at every pixel of ``canvas`` from one dense
+    a-trous trunk pass."""
+    feats = model(canvas[None, None], dilated=True)
+    return torch.softmax(fc_logits(model, feats), dim=-1)[0, ..., 1]
+
+
 @torch.inference_mode()
-def fcn_dilated_saliency(model: GoogLeNet, img, scale: int = 32):
-    """The whole shift-and-stitch output from ONE dense a-trous trunk pass
+def fcn_dilated_saliency(model: GoogLeNet, img, scale: int = 32,
+                         block: int | None = None):
+    """The whole shift-and-stitch output from dense a-trous trunk passes
     (``model(x, dilated=True)``) over the canvas. The stitch writes shift
     (top, left) at offset scale-1-top and view ``top`` starts at canvas
     row scale-top, so stitched[q] == dense[q + 1], and after the stitch's
@@ -445,15 +461,44 @@ def fcn_dilated_saliency(model: GoogLeNet, img, scale: int = 32):
     deviation is larger than the phase path's (the dilated pools pad -inf
     at the canvas extent, not per view); away from the canvas edges by
     the trunk's reach the two agree to rounding. Requires ``scale`` == 32.
-    Device memory grows with the canvas: see :data:`MAX_DILATED_CANVAS_PX`."""
+
+    A canvas of more than :data:`DILATED_WINDOW_PX` pixels runs as windows
+    of ``block + 2*halo`` canvas lines (``halo`` = :data:`TRUNK_HALO`), cut
+    from the scene's one canvas on its ``scale``-line grid, each keeping
+    its central ``block`` lines; the last window's start is clamped back
+    so it keeps its length. ``block=None`` sizes them by
+    :func:`_dilated_block`; a given ``block`` windows any canvas longer
+    than one window. Every kept line lies at least ``halo`` lines from a
+    cut, twice the trunk's reach, and the true top and bottom canvas edges
+    fall inside the first and last windows, where the whole-canvas pass
+    has them: the windowed map equals the whole-canvas map to convolution
+    rounding. Device memory is one window's pass."""
     if scale != 32:
         raise ValueError("dilated path requires scale == 32")
+    if block is not None and block % scale:
+        raise ValueError("block must be a multiple of scale")
     h0, w0 = img.shape
-    feats = model(_canvas(img, scale)[None, None], dilated=True)
-    probs = torch.softmax(fc_logits(model, feats), dim=-1)[0, ..., 1]
-    del feats
+    canvas = _canvas(img, scale)
+    rows, cols = canvas.shape
+    if block is None and rows * cols > DILATED_WINDOW_PX:
+        block = _dilated_block(rows, cols, scale)
+    if block is None or rows <= block + 2 * TRUNK_HALO:
+        block = win = rows
+    else:
+        win = block + 2 * TRUNK_HALO
     off = scale // 2 + 1
-    return probs[off:off + h0, off:off + w0]
+    out = None
+    for r0 in range(0, rows, block):
+        a, b = max(r0, off), min(r0 + block, off + h0)     # kept canvas lines
+        if a >= b:
+            continue
+        s = max(0, min(r0 - TRUNK_HALO, rows - win))
+        probs = _dilated_probs(model, canvas[s:s + win])
+        if out is None:
+            out = probs.new_empty((h0, w0))
+        out[a - off:b - off] = probs[a - s:b - s, off:off + w0]
+        del probs
+    return out
 
 
 def saliency_model(state_dict, dtype=torch.float32, device="cuda") -> GoogLeNet:
@@ -482,11 +527,10 @@ def fcn_saliency_image(img, model: GoogLeNet, model_name: str = "multi_64",
     folded GoogLeNet; a canonical one is folded here. The trunk runs in
     the model's dtype. ``method``: 'shift' (per-shift batches, any
     scale), 'phase', 'phase-blocked' (line windows with an exact halo),
-    'dilated' (one a-trous pass), or 'auto' (phase when scale == 32).
+    'dilated' (dense a-trous passes), or 'auto' (phase when scale == 32).
     'auto' and 'phase' take the blocked path past
-    :func:`unblocked_limits`. 'dilated' raises ValueError, before any
-    device work, when the scene's canvas exceeds
-    :data:`MAX_DILATED_CANVAS_PX`. Returns an (H, W) float32 tensor on
+    :func:`unblocked_limits`, 'dilated' its line windows past
+    :data:`DILATED_WINDOW_PX`. Returns an (H, W) float32 tensor on
     ``device``.
     """
     if method == "auto":
@@ -495,11 +539,6 @@ def fcn_saliency_image(img, model: GoogLeNet, model_name: str = "multi_64",
     h0, w0 = img.shape
     if method == "phase" and (h0 > max_lines or h0 * w0 > max_px):
         method = "phase-blocked"
-    if method == "dilated" and _canvas_px(h0, w0, scale) > MAX_DILATED_CANVAS_PX:
-        raise ValueError(
-            f"method 'dilated' on {h0} x {w0} needs a canvas of "
-            f"{_canvas_px(h0, w0, scale)} px, over MAX_DILATED_CANVAS_PX "
-            f"({MAX_DILATED_CANVAS_PX}); use 'auto' (the blocked phase path)")
     dev = resolve_device(device)
     if not (model.fused and model.folded):
         model = fold_inference(model.eval())

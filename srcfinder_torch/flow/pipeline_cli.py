@@ -288,8 +288,8 @@ def build_parser():
     p.add_argument("--method", default="auto",
                    choices=["auto", "shift", "phase", "dilated"],
                    help="FCN path (auto: phase, line-blocked for long scenes; "
-                        "dilated is refused past a 2.5 Mpx canvas, 3,647 "
-                        "lines at width 598)")
+                        "dilated: dense passes in halo-exact line windows past "
+                        "a 2.5 Mpx canvas, 3,647 lines at width 598)")
     p.add_argument("--winds", default=None,
                    help="wind-grid directory (enables the emission stage)")
     p.add_argument("--wind-ext", default=".grib2", choices=[".grib2", ".npz"])

@@ -14,10 +14,9 @@ JAX package.
 
 from __future__ import annotations
 
-import multiprocessing
 import os
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import numpy as np
@@ -113,12 +112,7 @@ def precache_gtifs(imgfs, outdir, workers: int = 4, **kwargs):
     """Parallel precache (reference: joblib Parallel capped at 4 by RAM,
     cmftagger.py:600-616). Returns the list of gtif paths.
 
-    The workers are processes (spawned), as the reference's joblib ones
-    are: the port's LZW codec is pure Python and holds the interpreter
-    lock, so threads would warp one file at a time."""
-    imgfs = list(imgfs)
-    if workers <= 1 or len(imgfs) <= 1:
-        return [img_to_gtif(f, outdir, **kwargs) for f in imgfs]
-    with ProcessPoolExecutor(max_workers=min(workers, len(imgfs)),
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
+    The workers are threads, as the JAX package's are: the LZW codec and
+    numpy's array work release the interpreter lock."""
+    with ThreadPoolExecutor(max_workers=workers) as pool:
         return list(pool.map(partial(img_to_gtif, outdir=outdir, **kwargs), imgfs))

@@ -12,8 +12,9 @@ order, ~1e-6 at these activations); 2e-2 for bf16 and for the edge
 caveats the JAX package bounds at 2e-2 (tests/test_detect.py).
 
 The blocked cases need the real TRUNK_HALO (448 lines) and so two
-1,824-line windows; their port side runs with a few threads
-(``_threads``) to keep the file's wall time near two minutes.
+1,824-line windows, the windowed dilated case two 1,856-line windows;
+their port side runs with a few threads (``_threads``) to bound the
+file's wall time.
 """
 
 import os
@@ -151,17 +152,42 @@ def test_short_scene_falls_back_bit_identical(trained):
         tfp.fcn_phase_saliency_blocked(model, img, block=100)
 
 
-def test_dilated_refuses_canvas_over_ceiling(trained):
-    """'dilated' raises before any device work when the scene's canvas
-    exceeds MAX_DILATED_CANVAS_PX: at width 598 the ceiling admits 3,647
-    lines and refuses 3,648."""
+def test_dilated_windows_over_budget(trained, monkeypatch):
+    """A scene whose canvas (1,888 x 96) exceeds a lowered DILATED_WINDOW_PX
+    runs as line windows, two of 1,856 canvas lines with the real 448-line
+    halo, and equals the whole-canvas pass and the JAX package's dilated
+    fcn_saliency_image."""
+    v, fmodel, fvars, model = trained
+    band = np.random.default_rng(32).normal(300.0, 400.0, (1800, 17)).astype(np.float32)
+    band[0, :4] = -9999.0
+    with _threads(4):
+        whole = tfp.fcn_saliency_image(band, model, method="dilated", device="cpu").numpy()
+        windows = []
+        real = tfp._dilated_probs
+        monkeypatch.setattr(tfp, "_dilated_probs",
+                            lambda m, c: windows.append(tuple(c.shape)) or real(m, c))
+        monkeypatch.setattr(tfp, "DILATED_WINDOW_PX", 1856 * 96)
+        got = tfp.fcn_saliency_image(band, model, method="dilated", device="cpu").numpy()
+    assert windows == [(1856, 96)] * 2
+    ref = np.asarray(jfp.fcn_saliency_image(band, v, model=_flax_model(), method="dilated"))
+    assert whole.std() > 1e-3
+    np.testing.assert_array_equal(got == -9999.0, band == -9999.0)
+    np.testing.assert_allclose(got, whole, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+
+
+def test_dilated_block_sizes_and_short_scene(trained):
+    """The default blocks: the fewest windows within the budget, balanced
+    on the 32-line grid; a canvas no longer than one window runs one pass
+    whatever ``block`` says; a block off the grid raises."""
+    assert tfp._dilated_block(12096, 672, 32) == 2432      # 12,000 x 598: 5 windows
+    assert tfp._dilated_block(4032, 672, 32) == 2016       # 2 windows of 2,912 lines
     model = trained[3]
-    assert tfp._canvas(torch.zeros(37, 45), 32).numel() == tfp._canvas_px(37, 45, 32)
-    assert (tfp._canvas_px(3647, 598, 32) <= tfp.MAX_DILATED_CANVAS_PX
-            < tfp._canvas_px(3648, 598, 32))
-    with pytest.raises(ValueError, match="canvas"):
-        tfp.fcn_saliency_image(np.zeros((3648, 598), np.float32), model,
-                               method="dilated", device="cpu")
+    img = torch.from_numpy(_img((20, 45), 33))
+    torch.testing.assert_close(tfp.fcn_dilated_saliency(model, img, block=32),
+                               tfp.fcn_dilated_saliency(model, img), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="multiple of scale"):
+        tfp.fcn_dilated_saliency(model, img, block=100)
 
 
 def test_dilated_trunk_features_match_jax(trained):

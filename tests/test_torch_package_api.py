@@ -21,13 +21,17 @@ from srcfinder_tpu.models import convert as jconvert
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: names the port does not carry on purpose (ROADMAP.md section 1): the
-#: TPU-side prefetch and native extension, the orbax checkpoint pair and
-#: TrainState, and the jax.sharding helpers
+#: TPU-side prefetch, the orbax checkpoint pair and TrainState, and the
+#: jax.sharding helpers
 LEFT_OUT = {
-    "core": {"prefetch_to_device", "HAVE_NATIVE", "bil_window_to_lcb", "label8"},
+    "core": {"prefetch_to_device"},
     "train": {"TrainState", "save_checkpoint_orbax", "load_checkpoint_orbax"},
     "parallel": {"column_sharding", "batch_sharding", "replicated_sharding"},
 }
+#: flags that say whether a package's native library loads here: each
+#: package builds its own (the JAX package's extension by setup.py, the
+#: port's at first use), so their values may differ
+BUILD_FLAGS = {"HAVE_NATIVE"}
 SUBPACKAGES = ("cmf", "core", "detect", "flow", "masks", "models", "parallel", "qc",
                "train", "triage")
 
@@ -53,7 +57,9 @@ def test_subpackage_names_resolve(sub):
         # a function stays a function (not its module of the same name),
         # a constant equals the JAX package's
         assert callable(got) == callable(ref), n
-        if isinstance(ref, (str, int, float, tuple, list, dict)) and not callable(ref):
+        if n in BUILD_FLAGS:
+            assert isinstance(got, bool) and isinstance(ref, bool), n
+        elif isinstance(ref, (str, int, float, tuple, list, dict)) and not callable(ref):
             assert got == ref, n
     assert set(names) <= set(dir(port))
 

@@ -220,7 +220,8 @@ def test_pipeline_imports_no_jax():
             "srcfinder_torch.qc.collect, srcfinder_torch.qc.collect_cli, "
             "srcfinder_torch.qc.gtif, srcfinder_torch.qc.webapp, srcfinder_torch.cmf, "
             "srcfinder_torch.detect, srcfinder_torch.masks, srcfinder_torch.models, "
-            "srcfinder_torch.models.convert; "
+            "srcfinder_torch.models.convert, srcfinder_torch.core.native, "
+            "srcfinder_torch.ops.build; "
             "assert 'flax' not in sys.modules, 'flax'; "
             "assert 'optax' not in sys.modules, 'optax'; "
             "assert 'orbax' not in sys.modules, 'orbax'; "
