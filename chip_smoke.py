@@ -11,16 +11,22 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    spills (ptxas -v) and count the tensor-core instructions (HMMA,
    HGMMA, DMMA) in the SASS of each kernel of the built libraries
    (cuobjdump); the trunk library must have some, P2's bf16 front kernel
-   (front_kernel<bf16>) HGMMA, and the f64 LOOCV kernel
-   (loo_kernel<double>) DMMA.
-2. The bf16 convolutions of trunk_s23 and trunk_s45, one by one: every
-   distinct conv the two segments launch (srcfinder_torch.ops.trunk_fuse.
-   conv_plan) at the CLI's configuration (4096 windows of 256 x 256, in
-   the sub-batches the segments run), through the single-conv entry with
-   the segment's channel offsets, pixel strides and split, against the
-   plain conv in bf16 (TRUNK_TOL), with channels outside the written ones
-   left as they were. Prints ms, achieved TFLOP/s and the tile the
-   dispatch picked for each (it must be the tensor-core kernel's). Then
+   (front_kernel<bf16>) HGMMA, both f32 instances of the 3xTF32 conv
+   (conv_tf32x3_kernel<float, 64 and 128>) HGMMA, and the f64 LOOCV
+   kernel (loo_kernel<double>) DMMA.
+2. The convolutions one by one: every distinct conv trunk_s23 and
+   trunk_s45 launch (srcfinder_torch.ops.trunk_fuse.conv_plan) in bf16 at
+   the CLI's configuration (4096 windows of 256 x 256), and every distinct
+   f32 conv of P2 (its conv3), trunk_s23 and trunk_s45 at the f32 API's
+   batch (F32_BATCH), each in the sub-batch its segment runs, through the
+   single-conv entry with the segment's channel offsets, pixel strides and
+   split, against the plain conv in its dtype (TRUNK_TOL), two launches
+   bit-identical, with channels outside the written ones left as they
+   were; f32 rows also give the kernel's and cuDNN-f32's errors against an
+   f64 conv on their first F64_WINDOWS windows. Prints ms, achieved
+   TFLOP/s, the bound (f32 as 3xTF32, beside the FMA pipes' bound) and the
+   tile the dispatch picked for each (it must be the tensor-core kernel's,
+   as tensor_core_ok says, at the width that pads cout less). Then
    trunk_s45 on 3 windows, whose last blocks end in a ragged row tile, and
    P2's layers one by one (front kernel, conv3, pool2: device ms of each
    in a profiled call at 512 windows in f32 and bf16 and at 4096 in bf16,
@@ -178,8 +184,10 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    "trained-like" (conv and fc std sqrt(1 / fan_in), BatchNorm perturbed;
    torch.Generator seed 256), so activations stay O(1). Prints errors,
    kernel / plain / cuDNN-model times (CUDA events) and each kernel's
-   bound. fused_stage12's gather form, reading the windows from the padded
-   strip, must equal the contiguous form bit for bit, and two launches of
+   bound (f32 rows: as 3xTF32 on the tensor cores, the way their convs
+   run, and at the FMA pipes' rate as bound_fma_ms). fused_stage12's
+   gather form, reading the windows from the padded strip, must equal the
+   contiguous form bit for bit, and two launches of
    each kernel must agree bit for bit; P2 on 3 windows at D = 40 (ragged
    front tiles), 64 and 256 in both dtypes within TRUNK_TOL.
 6. The exact path on that strip (16 lines x 598 samples = 9,568 windows;
@@ -285,9 +293,10 @@ of standard output is {"ok": true, "device": {...}}.
     python3 chip_smoke.py --cmf-times TREE
     python3 chip_smoke.py --trunk-times TREE
 
-only time the CMF kernels (on phase 3's inputs; see cmf_times) or P2,
-fused_stage12 (on seeded windows; see trunk_times), of TREE's
-srcfinder_torch, for a same-call A/B of two commits.
+only time the CMF kernels (on phase 3's inputs; see cmf_times) or the
+trunk kernels (P2, s23, s3 and s45 in each of TRUNK_CONFIGS, on seeded
+windows and maps; see trunk_times), of TREE's srcfinder_torch, for a
+same-call A/B of two commits.
 
     python3 chip_smoke.py --train-times TREE
     python3 chip_smoke.py --multigpu
@@ -320,7 +329,24 @@ PLUME = (slice(1380, 1420), slice(290, 310))
 # precision); f64 on the FP64 tensor cores (DMMA), which are full IEEE f64;
 # bf16 on the tensor cores (dense)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12}
+# TF32 on the tensor cores (dense): f32-accurate work as 3xTF32 costs
+# three TF32 products for each f32 one
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12                                # H100 SXM HBM3
+
+
+def trunk_bound(ops, nbytes, dname):
+    """Bound of trunk work of ``ops`` operations moving ``nbytes``: {bound_ms,
+    bound_by}, the larger of the bytes over PEAK_BYTES and the operations
+    at the rate of the tensor cores that run them: bf16 at its own, f32 as
+    3xTF32 (three TF32 products for each f32 one, as the f32 convs run);
+    f32 work also gets bound_fma_ms, at the FMA pipes' rate."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (3 * ops / PEAK_TF32 if dname == "float32" else ops / PEAK_FLOPS[dname]) * 1e3
+    out = dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if dname == "float32":
+        out["bound_fma_ms"] = max(t_bytes, ops / PEAK_FLOPS[dname] * 1e3)
+    return out
 TOL = {"float32": 1e-5, "float64": 1e-12}           # max |err| / max |ref|
 # exact dense CNN: window side, windows per trunk-kernel comparison, strip
 # lines, and the trunk kernels' ceilings (max |err| / max |ref|): f32 allows
@@ -336,6 +362,10 @@ TRUNK_KERNELS = ("fused_stage12", "trunk_s23", "trunk_s3", "trunk_s45")
 # trunk_s23 runs as three sub-batches of its scratch budget and trunk_s3
 # as two
 TRUNK_CONFIGS = (("float32", 512), ("bfloat16", 512), ("bfloat16", CLI_BATCH))
+# cnn_saliency_image's default batch, in its default dtype (float32)
+F32_BATCH = 512
+# windows of each f32 conv shape also held against the conv in f64
+F64_WINDOWS = 16
 # the trunk kernels each route launches
 ROUTE_KERNELS = {"segments": ("trunk_s23", "trunk_s45"),
                  "stage12": ("fused_stage12", "trunk_s3", "trunk_s45"), "plain": ()}
@@ -453,12 +483,18 @@ def nvidia_smi_line():
 
 def kernel_label(mangled):
     """``name<type, ints>`` of a mangled ``*_kernel`` template instance."""
-    k = re.search(r"\d+([a-z_]+_kernel)I(\w+)", mangled)
+    # <length><name> in the mangled name: the first whose length matches
+    k = next((m for m in re.finditer(r"(?=(\d{1,2})([a-z][a-z0-9_]*?_kernel)I(\w+))", mangled)
+              if int(m.group(1)) == len(m.group(2))), None)
     if not k:
         return mangled
-    args = k.group(2)
-    t = "bf16" if "bfloat16" in args else {"f": "float", "d": "double"}.get(args[0], args)
-    return f"{k.group(1)}<{', '.join([t] + re.findall(r'L[ib](\d+)E', args))}>"
+    args = k.group(3)
+    # the element type: a template argument, or else Conv<T> among the
+    # parameters (conv_tf32x3_kernel<TBN>(Conv<float>))
+    c = re.match(r"[fd]", args) or re.search(r"I([fd])E", args)
+    t = ["bf16"] if "bfloat16" in args else (
+        [{"f": "float", "d": "double"}[c.group(c.lastindex or 0)]] if c else [])
+    return f"{k.group(2)}<{', '.join(t + re.findall(r'L[ib](\d+)E', args))}>"
 
 
 def ptxas_summary(log):
@@ -788,95 +824,155 @@ def phase_kernels():
     return results
 
 
-def max_abs_diff(a, b, rows=256):
-    """max |a - b| in f32, over slices of ``rows`` along dim 0."""
-    return max((a[i:i + rows].float() - b[i:i + rows].float()).abs().max().item()
+def max_abs_diff(a, b, rows=256, f64=False):
+    """max |a - b| in f32 (in f64 with ``f64``), over slices of ``rows``
+    along dim 0."""
+    def cast(t):
+        return t.double() if f64 else t.float()
+    return max((cast(a[i:i + rows]) - cast(b[i:i + rows])).abs().max().item()
                for i in range(0, a.shape[0], rows))
 
 
 def phase_conv_shapes():
-    """Every distinct bf16 conv of trunk_s23 and trunk_s45 at the CLI's
-    configuration, in the sub-batch each segment launches, through the
-    single-conv entry as the segment launches it (channel offsets, pixel
-    strides, split) on NaN-filled outputs, against the plain conv:
-    relative error, ms, achieved TFLOP/s and the tile the dispatch picked
-    (trunk_fuse.conv_tile). Each must go to the tensor-core kernel as
-    trunk_fuse.tensor_core_ok says, stay within TRUNK_TOL["bfloat16"] and
-    leave every channel it does not own NaN."""
+    """Every distinct conv of trunk_s23 and trunk_s45 in bf16 at the CLI's
+    configuration, and every distinct f32 conv of P2 (conv3), trunk_s23 and
+    trunk_s45 at F32_BATCH, in the sub-batch each segment launches, through
+    the single-conv entry as the segment launches it (channel offsets,
+    pixel strides, split) on NaN-filled outputs, against the plain conv in
+    its dtype: relative error, ms, achieved TFLOP/s and the tile the
+    dispatch picked (trunk_fuse.conv_tile), and the bound (trunk_bound).
+    Each must go to the tensor-core kernel of its dtype as
+    trunk_fuse.tensor_core_ok says, at the tile width that pads cout less,
+    stay within TRUNK_TOL, give the same bits on a second launch and leave
+    every channel it does not own NaN. f32 rows also hold the kernel's and
+    cuDNN-f32's (the plain conv's) errors against the conv in f64 on their
+    first F64_WINDOWS windows."""
     import torch
+    from srcfinder_torch.device import resolve_device
     from srcfinder_torch.ops import trunk_fuse as tf
-    bf16, nan = torch.bfloat16, float("nan")
+    resolve_device("cuda")                     # TF32 off for the plain f32 conv
     gen = torch.Generator(device="cuda").manual_seed(3232)
     rows, seen = [], set()
-    for name, side in (("trunk_s23", WIN // 2), ("trunk_s45", WIN // 16)):
-        n = tf.sub_batch(name, CLI_BATCH, side, bf16)
-        for c in tf.conv_plan(name, side):
-            if c[1:] in seen:
-                continue
-            seen.add(c[1:])
-            tag = f"{name} {c.layer}"
-            if not tf.tensor_core_ok(c):
-                fail(f"{tag}: outside the tensor-core kernel's dispatch rule")
-            fan_in = c.k * c.k * c.cin
-            ks = (c.cin, c.cout) if c.k == 1 else (c.k, c.k, c.cin, c.cout)
-            k = (torch.randn(ks, generator=gen, device="cuda") * fan_in ** -0.5).to(bf16)
-            b = (torch.randn(1, c.cout, generator=gen, device="cuda") * 0.2).to(bf16)
-            X = torch.randn(n, c.side, c.side, c.ldx, generator=gen, device="cuda",
-                            dtype=bf16).relu_()
-            ho = (c.side + 2 * c.pad - c.k) // c.stride + 1
-            Y0 = torch.full((n, ho, ho, c.ldy0), nan, device="cuda", dtype=bf16)
-            Y1 = (torch.full((n, ho, ho, c.ldy1), nan, device="cuda", dtype=bf16)
-                  if c.split < c.cout else None)
-            x = X[..., c.x_off:c.x_off + c.cin]
-            y0 = Y0[..., c.y_off:c.y_off + c.split]
-            y1 = None if Y1 is None else Y1[..., :c.cout - c.split]
-
-            def run():
-                tf.conv(x, k, b, y0, y1, c.stride, c.pad)
-            tile = tf.conv_tile(x, k, b, y0, y1, c.stride, c.pad)
-            if tile not in (64, 128):
-                fail(f"{tag}: the dispatch picked tile {tile}, not the tensor-core kernel")
-            run()
-            torch.cuda.synchronize()
-            with torch.no_grad():
-                ref = tf._conv_ref(x.permute(0, 3, 1, 2), k, b, c.stride, c.pad
-                                   ).permute(0, 2, 3, 1)
-                got = y0 if y1 is None else torch.cat([y0, y1], dim=3)
-                ref_max = ref.float().abs().max().item()
-                rel = max_abs_diff(got, ref) / ref_max
-                untouched = int(torch.isnan(Y0).sum().item()) + (
-                    0 if Y1 is None else int(torch.isnan(Y1).sum().item()))
-            del ref, got
-            ms = cuda_ms(run, reps=5)
-            m = n * ho * ho
-            ops = 2 * m * c.cout * fan_in
-            rows.append(dict(conv=tag, windows=n, side=c.side, cin=c.cin, cout=c.cout,
-                             k=c.k, M=m, ms=ms, tflops=ops / ms / 1e9, max_rel_err=rel,
-                             ref_max=ref_max, tile=tile))
-            want = m * (c.ldy0 - c.split + (0 if Y1 is None else c.ldy1 - (c.cout - c.split)))
-            if not rel <= TRUNK_TOL["bfloat16"]:
-                fail(f"{tag}: relative error {rel:.3g} > {TRUNK_TOL['bfloat16']:g}")
-            if untouched != want:
-                fail(f"{tag}: {untouched} NaN left in the outputs, expected {want} "
-                     "(channels it does not own, none it does)")
-            del X, Y0, Y1, x, y0, y1, k, b
-        torch.cuda.empty_cache()
+    cases = (("bfloat16", CLI_BATCH, (("trunk_s23", WIN // 2), ("trunk_s45", WIN // 16))),
+             ("float32", F32_BATCH, (("fused_stage12", WIN), ("trunk_s23", WIN // 2),
+                                     ("trunk_s45", WIN // 16))))
+    for dname, batch, plans in cases:
+        dtype = getattr(torch, dname)
+        for name, side in plans:
+            n = tf.sub_batch(name, batch, side, dtype)
+            for c in tf.conv_plan(name, side):
+                if (dname,) + c[1:] in seen:
+                    continue
+                seen.add((dname,) + c[1:])
+                rows.append(_conv_shape_row(tf, gen, f"{name} {c.layer} {dname}", c, n, dtype))
+            torch.cuda.empty_cache()
     # every M above is a multiple of the kernel's 128-row tile; trunk_s45 on
     # 3 windows gives inception 5a/5b (8 x 8 maps) 192 rows, a ragged tile
-    params = [(torch.randn(s, generator=gen, device="cuda")
-               * (0.2 if s[0] == 1 else math.prod(s[:-1]) ** -0.5)).to(bf16)
-              for s in tf._SHAPES["trunk_s45"]]
-    p45 = tf.pack_params("trunk_s45", params)
-    x45 = torch.randn(3, WIN // 16, WIN // 16, 480, generator=gen, device="cuda",
-                      dtype=bf16).relu_()
-    with torch.no_grad():
-        got, ref = tf.trunk_s45(x45, p45), tf.trunk_s45_ref(x45, p45)
-    ragged = max_abs_diff(got, ref) / ref.float().abs().max().item()
-    print(json.dumps({"conv_shapes": rows, "tol": TRUNK_TOL["bfloat16"],
-                      "trunk_s45_b3_max_rel_err": ragged}))
-    if not ragged <= TRUNK_TOL["bfloat16"]:
-        fail(f"trunk_s45 on 3 windows: relative error {ragged:.3g}")
+    ragged = {}
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        p45 = tf.pack_params("trunk_s45", seeded_params(gen, "trunk_s45", dtype))
+        x45 = torch.randn(3, WIN // 16, WIN // 16, 480, generator=gen, device="cuda",
+                          dtype=dtype).relu_()
+        with torch.no_grad():
+            got, ref = tf.trunk_s45(x45, p45), tf.trunk_s45_ref(x45, p45)
+        ragged[dname] = max_abs_diff(got, ref) / ref.float().abs().max().item()
+    # a conv the rule refuses (6 input channels: a 16-byte vector of 4 f32
+    # would cross a tap): no kernel takes it, so the wrapper raises
+    x6, k6 = torch.ones(1, 4, 4, 6, device="cuda"), torch.ones(6, 8, device="cuda")
+    b6, y6 = torch.zeros(1, 8, device="cuda"), torch.empty(1, 4, 4, 8, device="cuda")
+    refused = dict(tile=tf.conv_tile(x6, k6, b6, y6), raised=False)
+    try:
+        tf.conv(x6, k6, b6, y6)
+    except RuntimeError:
+        refused["raised"] = True
+    torch.cuda.synchronize()
+    print(json.dumps({"conv_shapes": rows, "tol": TRUNK_TOL,
+                      "trunk_s45_b3_max_rel_err": ragged, "refused_f32_cin6": refused}))
+    if refused != dict(tile=0, raised=True):
+        fail(f"an f32 conv of 6 input channels: {refused}, expected tile 0 and a raise")
+    for dname, rel in ragged.items():
+        if not rel <= TRUNK_TOL[dname]:
+            fail(f"trunk_s45 on 3 windows in {dname}: relative error {rel:.3g}")
     return rows
+
+
+def _conv_shape_row(tf, gen, tag, c, n, dtype):
+    """One row of phase_conv_shapes: conv ``c`` (a ConvLaunch) over ``n``
+    windows in ``dtype``, seeded from ``gen``."""
+    import torch
+    nan, f32 = float("nan"), dtype == torch.float32
+    fan_in = c.k * c.k * c.cin
+    ks = (c.cin, c.cout) if c.k == 1 else (c.k, c.k, c.cin, c.cout)
+    k = (torch.randn(ks, generator=gen, device="cuda") * fan_in ** -0.5).to(dtype)
+    b = (torch.randn(1, c.cout, generator=gen, device="cuda") * 0.2).to(dtype)
+    X = torch.randn(n, c.side, c.side, c.ldx, generator=gen, device="cuda",
+                    dtype=dtype).relu_()
+    ho = (c.side + 2 * c.pad - c.k) // c.stride + 1
+    Y0 = torch.full((n, ho, ho, c.ldy0), nan, device="cuda", dtype=dtype)
+    Y1 = (torch.full((n, ho, ho, c.ldy1), nan, device="cuda", dtype=dtype)
+          if c.split < c.cout else None)
+    x = X[..., c.x_off:c.x_off + c.cin]
+    y0 = Y0[..., c.y_off:c.y_off + c.split]
+    y1 = None if Y1 is None else Y1[..., :c.cout - c.split]
+
+    def run():
+        tf.conv(x, k, b, y0, y1, c.stride, c.pad)
+    if not tf.tensor_core_ok(c, dtype):
+        fail(f"{tag}: outside the tensor-core kernel's dispatch rule")
+    tile = tf.conv_tile(x, k, b, y0, y1, c.stride, c.pad)
+    # the rule's tile width: the one that pads cout less, 128 on a tie
+    want_tile = 128 if c.cout % 128 == 0 or c.cout % 128 > 64 else 64
+    if tile != want_tile:
+        fail(f"{tag}: the dispatch picked tile {tile}, not the tensor-core kernel's "
+             f"{want_tile}")
+    run()
+    torch.cuda.synchronize()
+    got = y0 if y1 is None else torch.cat([y0, y1], dim=3)
+    run()
+    again = y0 if y1 is None else torch.cat([y0, y1], dim=3)
+    same = torch.equal(got, again)
+    del again
+    row = dict(conv=tag, windows=n, side=c.side, cin=c.cin, cout=c.cout, k=c.k, tile=tile)
+    with torch.no_grad():
+        xt = x.permute(0, 3, 1, 2)
+        ref = tf._conv_ref(xt, k, b, c.stride, c.pad).permute(0, 2, 3, 1)
+        ref_max = ref.float().abs().max().item()
+        rel = max_abs_diff(got, ref) / ref_max
+        if f32:
+            # the f64 conv on the first F64_WINDOWS windows only: cuDNN's f64
+            # conv runs at a small share of the f32 rate
+            w64 = min(n, F64_WINDOWS)
+            ref64 = tf._conv_ref(xt[:w64].double(), k.double(), b.double(), c.stride, c.pad
+                                 ).permute(0, 2, 3, 1)
+            max64 = ref64.abs().max().item()
+            row.update(f64_windows=w64,
+                       max_rel_err_vs_f64=max_abs_diff(got[:w64], ref64, f64=True) / max64,
+                       cudnn_f32_max_rel_err_vs_f64=max_abs_diff(ref[:w64], ref64,
+                                                                 f64=True) / max64)
+            del ref64
+        untouched = int(torch.isnan(Y0).sum().item()) + (
+            0 if Y1 is None else int(torch.isnan(Y1).sum().item()))
+    del ref, got
+    ms = cuda_ms(run, reps=5)
+    m = n * ho * ho
+    ops = 2 * m * c.cout * fan_in
+    row.update(M=m, ms=ms, tflops=ops / ms / 1e9, max_rel_err=rel, ref_max=ref_max,
+               bit_identical=same)
+    s = torch.finfo(dtype).bits // 8
+    row.update(trunk_bound(ops, s * (n * c.side * c.side * c.cin + m * c.cout + fan_in * c.cout),
+                           "float32" if f32 else "bfloat16"))
+    row["share_of_bound"] = row["bound_ms"] / ms
+    want = m * (c.ldy0 - c.split + (0 if Y1 is None else c.ldy1 - (c.cout - c.split)))
+    tol = TRUNK_TOL["float32" if f32 else "bfloat16"]
+    if not rel <= tol:
+        fail(f"{tag}: relative error {rel:.3g} > {tol:g}")
+    if not same:
+        fail(f"{tag}: two launches on one input differ")
+    if untouched != want:
+        fail(f"{tag}: {untouched} NaN left in the outputs, expected {want} "
+             "(channels it does not own, none it does)")
+    return row
 
 
 def seeded_params(gen, name, dtype):
@@ -911,7 +1007,8 @@ def stage12_layers():
     import torch
     from srcfinder_torch.ops import trunk_fuse as tf
     gen = torch.Generator(device="cuda").manual_seed(1212)
-    family = {"front": ("front_kernel",), "conv3": ("conv_wgmma_kernel", "conv_kernel"),
+    family = {"front": ("front_kernel",),
+              "conv3": ("conv_wgmma_kernel", "conv_tf32x3_kernel"),
               "pool2": ("maxpool_kernel",)}
     out = {}
     for dname, n in TRUNK_CONFIGS:
@@ -924,9 +1021,9 @@ def stage12_layers():
         layers = {}
         for layer, (ops, elems) in stage12_layer_work(n, WIN).items():
             ms = sum(prof["families_ms"].get(f, 0.0) for f in family[layer])
-            bound = max(elems * (torch.finfo(dtype).bits // 8) / PEAK_BYTES,
-                        ops / PEAK_FLOPS[dname]) * 1e3
-            layers[layer] = dict(ms=ms, bound_ms=bound, share_of_bound=bound / ms if ms else None)
+            bound = trunk_bound(ops, elems * (torch.finfo(dtype).bits // 8), dname)
+            layers[layer] = dict(ms=ms, **bound,
+                                 share_of_bound=bound["bound_ms"] / ms if ms else None)
         out[f"{dname}_b{n}"] = dict(layers=layers, device_busy_ms=prof["device_busy_ms"],
                                     families_ms=prof["families_ms"])
         if not all(v["ms"] > 0 for v in layers.values()):
@@ -2531,7 +2628,7 @@ def branch4_ms(events):
     and the 1x1 after it) in time-ordered device ``events``: each block
     launches conv (wide 1x1), conv, conv, pool, conv, and no other pool
     of the trunk follows three convs."""
-    kind = ["conv" if "conv_kernel" in e.name or "conv_wgmma_kernel" in e.name
+    kind = ["conv" if re.search(r"conv_(wgmma|tf32x3)_kernel", e.name)
             else "pool" if "maxpool_kernel" in e.name else "" for e in events]
     return sum(events[i].time_range.elapsed_us() + events[i + 1].time_range.elapsed_us()
                for i in range(3, len(events) - 1)
@@ -2542,7 +2639,8 @@ def branch4_ms(events):
 # device functions by family: the first pattern a name matches; cuDNN's
 # convolutions and its layout transposes are "cudnn_conv"
 KERNEL_FAMILIES = (("front_kernel", r"front_kernel"), ("conv_wgmma_kernel", r"conv_wgmma_kernel"),
-                   ("conv_kernel", r"conv_kernel"), ("maxpool_kernel", r"maxpool_kernel"),
+                   ("conv_tf32x3_kernel", r"conv_tf32x3_kernel"),
+                   ("maxpool_kernel", r"maxpool_kernel"),
                    ("gap_kernel", r"gap_kernel"),
                    ("cudnn_conv", r"fprop|dgrad|wgrad|convolve|cudnn|nchwToNhwc|nhwcToNchw|"
                                   r"implicit_gemm|conv2d|xmma_conv"),
@@ -2804,10 +2902,8 @@ def phase_trunk_kernels(strip, wf):
                 del got, ref
             ops, n_in, n_out, n_w = trunk_work(name, n, WIN)
             k["ops"], k["bytes"] = ops, s * (n_in + n_out + n_w)
-            t_bytes = k["bytes"] / PEAK_BYTES * 1e3
-            t_ops = ops / PEAK_FLOPS[dname] * 1e3
-            k["bound_ms"] = max(t_bytes, t_ops)
-            k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            k.update(trunk_bound(ops, k["bytes"], dname))
+            k["share_of_bound"] = k["bound_ms"] / k["ms"]
             if not k["max_rel_err"] <= TRUNK_TOL[dname]:
                 fail(f"{name} {tag}: relative error {k['max_rel_err']:.3g} "
                      f"> {TRUNK_TOL[dname]:g}")
@@ -4305,12 +4401,13 @@ def cmf_times(tree):
 
 
 def trunk_times(tree):
-    """Same-call A/B of P2: ``python3 chip_smoke.py --trunk-times TREE``
-    times fused_stage12 (contiguous windows) of TREE's srcfinder_torch in
-    each of TRUNK_CONFIGS on seeded windows and weights (identical in
-    every call), with its error against TREE's plain version, and prints
-    one JSON line. Run it on two trees in turns within one call (old, new,
-    new, old)."""
+    """Same-call A/B of the trunk kernels: ``python3 chip_smoke.py
+    --trunk-times TREE`` times fused_stage12 (contiguous windows) of TREE's
+    srcfinder_torch in each of TRUNK_CONFIGS, and trunk_s23, trunk_s3 and
+    trunk_s45 in each of them too, on seeded windows, maps and weights
+    (identical in every call), each with its error against TREE's plain
+    version, and prints one JSON line. Run it on two trees in turns within
+    one call (old, new, new, old)."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -4323,22 +4420,30 @@ def trunk_times(tree):
     resolve_device("cuda")                     # TF32 off for the plain version
     build.build_all([tf.KERNEL])
     gen = torch.Generator(device="cuda").manual_seed(612)
+    # each kernel's input: (side, channels) of its map, (B, D, D, 1) windows for P2
+    inputs = {"fused_stage12": (WIN, 1), "trunk_s23": (WIN // 2, 64),
+              "trunk_s3": (WIN // 8, 192), "trunk_s45": (WIN // 16, 480)}
     out = {}
     for dname, n in TRUNK_CONFIGS:
         dtype = getattr(torch, dname)
-        p = tf.pack_params("fused_stage12", seeded_params(gen, "fused_stage12", dtype))
-        wins = torch.randn(n, WIN, WIN, 1, generator=gen, device="cuda").to(dtype)
-        with torch.no_grad():
-            got, ref = tf.fused_stage12(wins, p), tf.fused_stage12_ref(wins, p)
-            rel = max_abs_diff(got, ref) / ref.float().abs().max().item()
-            ms = cuda_ms(lambda: tf.fused_stage12(wins, p), reps=20)
-        ops, n_in, n_out, n_w = trunk_work("fused_stage12", n, WIN)
-        bound = max(ops / PEAK_FLOPS[dname],
-                    (n_in + n_out + n_w) * (torch.finfo(dtype).bits // 8) / PEAK_BYTES) * 1e3
-        out[f"{dname}_b{n}"] = dict(ms=ms, bound_ms=bound, share_of_bound=bound / ms,
-                                    max_rel_err=rel)
-        del wins, p, got, ref
-        torch.cuda.empty_cache()
+        for name in TRUNK_KERNELS:
+            side, ch = inputs[name]
+            p = tf.pack_params(name, seeded_params(gen, name, dtype))
+            x = torch.randn(n, side, side, ch, generator=gen, device="cuda")
+            x = (x if name == "fused_stage12" else x.relu_()).to(dtype)
+            kern, plain = getattr(tf, name), getattr(tf, f"{name}_ref")
+            with torch.no_grad():
+                got, ref = kern(x, p), plain(x, p)
+                rel = max_abs_diff(got, ref) / ref.float().abs().max().item()
+                del got, ref
+                ms = cuda_ms(lambda: kern(x, p), reps=20 if n < CLI_BATCH else 10)
+            ops, n_in, n_out, n_w = trunk_work(name, n, WIN)
+            bound = trunk_bound(ops, (n_in + n_out + n_w) * (torch.finfo(dtype).bits // 8), dname)
+            out[f"{name} {dname}_b{n}"] = dict(ms=ms, **bound,
+                                                share_of_bound=bound["bound_ms"] / ms,
+                                                max_rel_err=rel)
+            del x, p
+            torch.cuda.empty_cache()
     print(json.dumps({"trunk_times": out, "tree": tree, "gpu": nvidia_smi_line()}))
 
 
@@ -4428,40 +4533,56 @@ def main():
         fail("no HMMA/HGMMA instruction in the trunk library")
     if not sass["trunk"].get("front_kernel<bf16>", {}).get("HGMMA"):
         fail("no HGMMA instruction in P2's bf16 front kernel (front_kernel<bf16>)")
+    for tbn in (64, 128):
+        if not sass["trunk"].get(f"conv_tf32x3_kernel<float, {tbn}>", {}).get("HGMMA"):
+            fail(f"no HGMMA instruction in the f32 conv (conv_tf32x3_kernel<float, {tbn}>)")
     if not sass["loo"].get("loo_kernel<double>", {}).get("DMMA"):
         fail("no DMMA instruction in the f64 LOOCV kernel (loo_kernel<double>)")
 
-    phase_conv_shapes()
-    stage12_layers()
-    checks = phase_kernels()
+    phase_s = {}                               # each phase's seconds
+
+    def timed(name, fn, *args):
+        t = time.time()
+        try:
+            return fn(*args)
+        finally:
+            phase_s[name] = time.time() - t
+
+    timed("conv_shapes", phase_conv_shapes)
+    timed("stage12_layers", stage12_layers)
+    checks = timed("kernels", phase_kernels)
 
     workdir = os.path.join(HERE, "chip_smoke_work")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
-        flightline, main_prods, rdn, libf = phase_main_path(workdir)
+        flightline, main_prods, rdn, libf = timed("main_path", phase_main_path, workdir)
         cmf_product = main_prods["cmf"]
         launches = {k: ("run_flightline", n) for k, n in flightline.items()}
-        phase_native(workdir, rdn, libf, main_prods)
-        phase_postproc(workdir, cmf_product)
-        phase_train(workdir)
-        winds_launches = phase_winds(workdir, rdn, libf, cmf_product)
-        phase_flow_stages(workdir)
-        phase_triage_qc(workdir)
-        mm_launches, mm_checks = phase_multimodal(workdir, libf, write_weights(workdir))
+        timed("native", phase_native, workdir, rdn, libf, main_prods)
+        timed("postproc", phase_postproc, workdir, cmf_product)
+        timed("train", phase_train, workdir)
+        winds_launches = timed("winds", phase_winds, workdir, rdn, libf, cmf_product)
+        timed("flow_stages", phase_flow_stages, workdir)
+        timed("triage_qc", phase_triage_qc, workdir)
+        mm_launches, mm_checks = timed("multimodal", phase_multimodal, workdir, libf,
+                                       write_weights(workdir))
         checks.update(mm_checks)
         strip = write_strip(workdir, cmf_product)
         cnn_weights = write_cnn_weights(workdir)
-        checks.update(phase_trunk_kernels(strip, cnn_weights))
-        launches.update(phase_exact_cnn(workdir, strip, cnn_weights))
-        dilated_s_per_px = phase_fcn_paths(workdir, cmf_product, cnn_weights)
-        mg_launches = phase_multigpu(workdir, rdn, libf, cmf_product, strip, cnn_weights)
+        checks.update(timed("trunk_kernels", phase_trunk_kernels, strip, cnn_weights))
+        launches.update(timed("exact_cnn", phase_exact_cnn, workdir, strip, cnn_weights))
+        dilated_s_per_px = timed("fcn_paths", phase_fcn_paths, workdir, cmf_product,
+                                 cnn_weights)
+        mg_launches = timed("multigpu", phase_multigpu, workdir, rdn, libf, cmf_product, strip,
+                            cnn_weights)
         for f in (rdn, rdn + ".hdr"):          # bound the disk use
             os.remove(f)
-        checks.update(phase_long_flightline(workdir, libf, write_weights(workdir), cnn_weights,
-                                            dilated_s_per_px))
+        checks.update(timed("long_flightline", phase_long_flightline, workdir, libf,
+                            write_weights(workdir), cnn_weights, dilated_s_per_px))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+        print(json.dumps({"phase_seconds": phase_s}))
 
     meta = {"masked_moments": ("srcfinder_torch/ops/csrc/moments.cu",
                                "ops/moments.py:104 masked_moments_pallas "
@@ -4488,7 +4609,7 @@ def main():
     # shape, the library call's scope and (K2) the columns whose argmin
     # differs, P2 its gather form's agreement and time
     extra_keys = keys + ("shape", "library_call", "bit_identical", "argmin_other_columns",
-                         "gather_equal", "gather_ms")
+                         "gather_equal", "gather_ms", "bound_fma_ms", "share_of_bound")
     # each kernel's configurations: the first is the one its path runs
     # (the flightline's f32 CMF; the CLI's bf16 batch of 4096 windows), top
     # level in the line; the others (the CMF's cond-gated f64 recompute,
@@ -4507,7 +4628,7 @@ def main():
         ks = [k for k in extra_keys if k in checks[(kname, top)]]
         entry.update({k: checks[(kname, top)][k] for k in ks})
         for c in others:
-            entry[c] = {k: checks[(kname, c)][k] for k in ks}
+            entry[c] = {k: v for k, v in checks[(kname, c)].items() if k in extra_keys}
             if c.startswith("multimodal"):
                 # the launches of the multimodal run (phase 4b), from zero
                 entry[c].update(launches=mm_launches[kname],

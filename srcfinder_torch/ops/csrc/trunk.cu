@@ -14,7 +14,8 @@
 //   conv           one conv + bias + ReLU with the channel split, offsets
 //                  and pixel strides the segments use, through their
 //                  dispatch (to hold each conv shape against its plain
-//                  version); conv_bf16_tile says which kernel it picks
+//                  version); conv_f32_tile / conv_bf16_tile say which
+//                  kernel it picks
 //
 // Every conv is BN-folded conv + bias + ReLU. fused_stage12 replaces the
 // JAX package's Pallas kernel ops/trunk_fuse.py::fused_stage12 (git
@@ -29,14 +30,20 @@
 // Bound on this card: the convolutions, about 3.6 GFLOP per 256x256 window,
 // against under 10 MB of bf16 feature maps per window: some 370 operations
 // per byte, above the H100's 295 for bf16, so the arithmetic bounds the
-// segments: operations over 989 TFLOP/s (bf16, tensor cores) or 67 TFLOP/s
-// (f32, FMA pipes; TF32 stays off, it is not full precision). P2 alone is
-// 1.04 GFLOP per window against the bytes of one window in (64 K pixels)
-// and (D/8)^2 * 192 out: operations bound it too.
+// segments: operations over 989 TFLOP/s in bf16 (tensor cores). In f32 the
+// FMA pipes give 67 TFLOP/s; single-pass TF32 on the tensor cores (495
+// TFLOP/s) keeps 10 mantissa bits, about three decimal digits, so it is not
+// full precision and stays off. Three TF32 products of a hi/lo split of each
+// operand (3xTF32: lo_a hi_b + hi_a lo_b + hi_a hi_b, the lo_a lo_b term
+// below 2^-22 of the product dropped) carry about 22 bits, what an f32 sum
+// of products keeps, at 3 x operations / 495 TFLOP/s: 2.5x the FMA pipes'
+// ceiling, which bounds the f32 segments. P2 alone is 1.04 GFLOP per window
+// against the bytes of one window in (64 K pixels) and (D/8)^2 * 192 out:
+// operations bound it too.
 //
 // P2's front (front_kernel): conv1 has one input channel, so its 16-byte
 // im2col vectors would cross taps and the tensor-core conv cannot take it;
-// on the FMA conv its 103 MFLOP per window outweighed P2's whole bf16
+// on the FMA pipes its 103 MFLOP per window outweighed P2's whole bf16
 // bound, and its (D/2)^2 * 64 output made a round trip through device
 // memory to pool1. front_kernel takes a tile of 8 x 8 pool1 outputs of one
 // window: it loads the tile's 39 x 39 input halo straight from the plane
@@ -70,15 +77,40 @@
 //   of 4 stages filled 2 slices ahead, while one wgmma group stays in
 //   flight. The epilogue goes through shared memory so that the output
 //   leaves in 16-byte chunks.
-// - conv_kernel (f32, and bf16 convs the tensor-core kernel does not take):
-//   the same GEMM view on the FMA pipes, a 128 x 64 block tile, an 8 x 4
-//   register tile a thread, 16-deep slices staged in shared memory as f32.
-// - Dispatch (launch(), tc_tile()): a bf16 conv goes to conv_wgmma_kernel
-//   when Cin, Cout, the channel split and the input and output pixel
-//   strides are multiples of 8 and the input, weight and output pointers
-//   16-byte aligned; every conv of trunk_s23/trunk_s45 and P2's conv2/conv3
-//   meet it; P2's conv1 runs inside front_kernel. Every f32 conv runs on
-//   conv_kernel.
+// - conv_tf32x3_kernel (f32): the same GEMM view, block tile and epilogue
+//   on wgmma m64nBNk8 with tf32 operands, as 3xTF32. tf32 wgmma takes no
+//   transpose: both operands must be K-major in shared memory, and the HWIO
+//   weight rows are N-major. So the raw f32 slices (32 deep: one 128-byte
+//   swizzle row of f32) land by 16-byte cp.async, zero-filled as above, in a
+//   ring of 3 stages filled 3 slices ahead: A's im2col rows already K-major
+//   in the 128-byte swizzle, B's reduction rows as they are. One split pass
+//   a slice rounds every value v to hi = tf32(v) and lo = tf32(v - hi)
+//   (cvt.rna, low 13 bits cleared) and writes A's hi and lo tiles in place
+//   and B's transposed, K-major, all in the layout wgmma reads, into one of
+//   two split buffers: the pass over slice k + 1 runs while slice k's wgmma
+//   runs on the other. Each k8 step accumulates lo_a hi_b, then hi_a lo_b,
+//   then hi_a hi_b, small terms first, into a partial sum of the slice's
+//   own: the tensor cores round their accumulation toward zero, a bias that
+//   grows with the steps one accumulator takes, so the partials (12 steps
+//   each) are added into the f32 sum by FADD, rounding to nearest. A stays
+//   in shared memory, not registers: from registers each thread would hold
+//   two k-slices of hi and lo fragments beside its 128 accumulators while a
+//   wgmma reads them, and ptxas serialises wgmma when it cannot prove them
+//   untouched; from shared memory the wgmma loop is the bf16 kernel's. What
+//   bounds it: shared memory, which the three products read (A once a
+//   warpgroup, B twice a block) on top of the split pass's traffic: by
+//   byte count about 1.4x the tensor cores' time a slice at BN 128. 225 KB
+//   a block at BN 128 (169 KB at 64), one block an SM. No atomics: repeats
+//   are bit-identical.
+// - Dispatch (launch(), tc_tile()): a conv goes to the tensor-core kernel of
+//   its dtype when Cin, Cout, the channel split and the input and output
+//   pixel strides are multiples of the 16-byte vector (8 bf16, 4 f32) and
+//   the input, weight and output pointers 16-byte aligned, so a vector
+//   never crosses a (ky, kx) tap; every conv of trunk_s23/trunk_s3/trunk_s45
+//   and P2's conv3 meets it in both dtypes (every channel count, offset and
+//   stride is a multiple of 8); P2's conv1 and conv2 run inside front_kernel.
+//   No kernel takes a conv the rule refuses: launch() returns an error for
+//   it, and the wrapper raises.
 // - Epilogue of both: bias added and ReLU in f32, then one rounding to the
 //   storage type, where the Pallas kernels rounded. The output goes to a
 //   channel offset and pixel stride of the concatenated inception output
@@ -96,9 +128,11 @@
 // Not yet: TMA for the weights and the 1x1 convs' A tiles (plain 2-D boxes
 // of an NHWC map) with a producer warp and mbarriers in place of the
 // cp.async ring every thread feeds; persistent blocks that overlap one
-// tile's epilogue with the next tile's loads; conv3 and pool2 inside P2's
-// front kernel (conv3's 64 -> 192 channels over a 10 x 10 halo of the
-// pooled tile would need 4x the pooled tile's shared memory).
+// tile's epilogue with the next tile's loads; weights split into hi and lo
+// once, K-major, for the f32 kernel (each block splits them again); conv3
+// and pool2 inside P2's front kernel (conv3's 64 -> 192 channels over a 10
+// x 10 halo of the pooled tile would need 4x the pooled tile's shared
+// memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,110 +170,6 @@ struct Conv {
   int split;
   int64_t M;     // N * Ho * Wo
 };
-
-// ---- FMA implicit GEMM ------------------------------------------------------
-
-constexpr int BM = 128;  // output pixels per block
-constexpr int BN = 64;   // output channels per block
-constexpr int BK = 16;   // reduction slice
-constexpr int TM = 8;    // pixels per thread
-constexpr int TN = 4;    // channels per thread
-constexpr int NT = 256;  // threads per block: (BM / TM) x (BN / TN)
-
-template <typename T>
-__global__ void __launch_bounds__(NT) conv_kernel(const Conv<T> a) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-  const int Kd = a.K * a.K * a.Cin;
-
-  // staging: this thread loads reduction column kl of rows ml0 + 16 i
-  const int kl = tid % BK;
-  const int ml0 = tid / BK;
-  int64_t base[TM];  // first pixel of the row's image
-  int iy0[TM], ix0[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t m = m0 + ml0 + 16 * i;
-    base[i] = 0;
-    iy0[i] = -(1 << 29);  // rows past M read nothing
-    ix0[i] = 0;
-    if (m < a.M) {
-      const int ox = static_cast<int>(m % a.Wo);
-      const int64_t t = m / a.Wo;
-      const int oy = static_cast<int>(t % a.Ho);
-      base[i] = (t / a.Ho) * a.H * a.W;
-      iy0[i] = oy * a.stride - a.pad;
-      ix0[i] = ox * a.stride - a.pad;
-    }
-  }
-
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < Kd; k0 += BK) {
-    const int k = k0 + kl;
-    const bool kv = k < Kd;
-    int ci = 0, ky = 0, kx = 0;
-    if (kv) {
-      ci = k % a.Cin;
-      const int r = k / a.Cin;
-      kx = r % a.K;
-      ky = r / a.K;
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int iy = iy0[i] + ky, ix = ix0[i] + kx;
-      float v = 0.f;
-      if (kv && iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
-        v = to_f(a.x[(base[i] + static_cast<int64_t>(iy) * a.W + ix) * a.ldx + ci]);
-      As[kl][ml0 + 16 * i] = v;
-    }
-#pragma unroll
-    for (int j = 0; j < BK * BN / NT; ++j) {
-      const int kk = tid / BN + (NT / BN) * j, nn = tid % BN;
-      const int kb = k0 + kk, nb = n0 + nn;
-      Bs[kk][nn] = (kb < Kd && nb < a.Cout)
-                       ? to_f(a.w[static_cast<int64_t>(kb) * a.Cout + nb]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[TN] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t m = m0 + ty * TM + i;
-    if (m >= a.M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n >= a.Cout) continue;
-      const T v = from_f<T>(fmaxf(acc[i][j] + to_f(a.b[n]), 0.f));
-      if (n < a.split)
-        a.y0[m * a.ldy0 + n] = v;
-      else
-        a.y1[m * a.ldy1 + (n - a.split)] = v;
-    }
-  }
-}
 
 // ---- tensor-core implicit GEMM (bf16, wgmma) --------------------------------
 
@@ -290,45 +220,60 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (1ull << 62);
 }
 
+// wgmma's accumulator operands: 32 f32 registers a thread at n64, 64 at n128
+#define WG_D32                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_D64                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define WG_OUT32                                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),      \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),   \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),   \
+      "+f"(d[31])
+#define WG_OUT64                                                                      \
+  WG_OUT32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),          \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),   \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),   \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),   \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),   \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
 // d (64 x N, f32) += A (64 x 16, K-major) * B (16 x N, N-major), bf16, one
 // warpgroup: scale-d 1 (accumulate), A and B not negated, B transposed
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+               ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+               : WG_OUT32 : "l"(a), "l"(b), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+               ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+               : WG_OUT64 : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x N, f32) = A (64 x 8, K-major) * B (8 x N, K-major) + (acc ? d : 0),
+// tf32, one warpgroup: A and B not negated (tf32 takes no transpose)
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_D32
+               ", %32, %33, p, 1, 1;\n}\n"
+               : WG_OUT32 : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_D64
+               ", %64, %65, p, 1, 1;\n}\n"
+               : WG_OUT64 : "l"(a), "l"(b), "r"(acc));
 }
 
 template <int N>
@@ -479,6 +424,239 @@ __global__ void __launch_bounds__(WG_THREADS) conv_wgmma_kernel(const Conv<bf16>
     if (m >= a.M || n >= a.Cout) continue;
     bf16* y = n < a.split ? a.y0 + m * a.ldy0 + n : a.y1 + m * a.ldy1 + (n - a.split);
     *reinterpret_cast<uint4*>(y) = *reinterpret_cast<const uint4*>(tile + r * LDT + (n - n0) * 2);
+  }
+}
+
+// ---- tensor-core implicit GEMM (f32 as 3xTF32, wgmma) -----------------------
+
+constexpr int TF_BM = 128;       // output pixels per block: 64 per warpgroup
+constexpr int TF_BK = 32;        // reduction slice: one 128-byte swizzle row of f32
+constexpr int TF_STAGES = 3;     // raw cp.async ring, filled TF_STAGES slices ahead
+constexpr int TF_THREADS = 256;  // two warpgroups
+
+template <int TBN>
+struct Tf {
+  static constexpr int A_BYTES = TF_BM * TF_BK * 4;
+  static constexpr int B_BYTES = TF_BK * TBN * 4;
+  // a raw stage: A's im2col rows (K-major, swizzled), B's reduction rows
+  static constexpr int RAW_BYTES = A_BYTES + B_BYTES;
+  // a split buffer: A hi, A lo, B hi, B lo, all K-major and swizzled
+  static constexpr int SPLIT_BYTES = 2 * RAW_BYTES;
+  static constexpr int SPLIT0 = TF_STAGES * RAW_BYTES;  // the two split buffers
+  static constexpr int SMEM = SPLIT0 + 2 * SPLIT_BYTES + 1024;  // + aligning
+  static constexpr int A_ROWS = TF_BM * (TF_BK / 4) / TF_THREADS;  // rows a thread stages
+  static constexpr int B_STEP = TF_THREADS / (TBN / 4);  // rows between a thread's B chunks
+  static constexpr int B_CHUNKS = TF_BK / B_STEP;        // B chunks a thread stages
+  static constexpr int LDT = TBN * 4 + 16;               // epilogue tile row in bytes
+  static_assert(SMEM <= 232448, "a block may use 227 KB of shared memory");
+  static_assert(TF_BM * LDT <= SPLIT0, "the epilogue tile must fit over the ring");
+};
+
+// v rounded to tf32 (10 mantissa bits, to nearest, ties away from zero)
+// with the 13 bits below cleared, as the tensor cores read it
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r & 0xffffe000u;
+}
+
+// v = hi + lo + O(2^-22 |v|): hi = tf32(v), lo = tf32(v - hi) (v - hi exact)
+__device__ __forceinline__ void split_tf32(const float (&v)[4], uint4& hi, uint4& lo) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h[i] = to_tf32(v[i]);
+    l[i] = to_tf32(v[i] - __uint_as_float(h[i]));
+  }
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+template <int TBN>
+__global__ void __launch_bounds__(TF_THREADS) conv_tf32x3_kernel(const Conv<float> a) {
+  using S = Tf<TBN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t s0 = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms 1024-aligned
+  unsigned char* sm = smem_raw + (s0 - smem_u32(smem_raw));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = tid >> 7;
+  const int tiles_n = (a.Cout + TBN - 1) / TBN;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x / tiles_n) * TF_BM;
+  const int n0 = static_cast<int>(blockIdx.x % tiles_n) * TBN;
+  const int Kd = a.K * a.K * a.Cin;
+  const int KT = (Kd + TF_BK - 1) / TF_BK;
+
+  // A staging as conv_wgmma_kernel's: chunk ac (4 channels) of rows
+  // ar0 + i * TF_THREADS / 8, all at one tap a slice
+  const int ac = tid & 7, ar0 = tid >> 3;
+  int64_t row[S::A_ROWS];  // the row's tap (0, 0), relative to x
+  int iy0[S::A_ROWS], ix0[S::A_ROWS];
+#pragma unroll
+  for (int i = 0; i < S::A_ROWS; ++i) {
+    const int64_t m = m0 + ar0 + i * (TF_THREADS / 8);
+    row[i] = 0;
+    iy0[i] = -(1 << 29);  // rows past M read nothing
+    ix0[i] = 0;
+    if (m < a.M) {
+      const int ox = static_cast<int>(m % a.Wo);
+      const int64_t t = m / a.Wo;
+      const int oy = static_cast<int>(t % a.Ho);
+      iy0[i] = oy * a.stride - a.pad;
+      ix0[i] = ox * a.stride - a.pad;
+      row[i] = ((t / a.Ho) * a.H * a.W + static_cast<int64_t>(iy0[i]) * a.W + ix0[i]) * a.ldx;
+    }
+  }
+  int k = ac * 4, ci = k % a.Cin, kx = (k / a.Cin) % a.K, ky = (k / a.Cin) / a.K;
+  // B staging: chunk bc (4 channels) of reduction rows br0 + j * B_STEP
+  const int bc = tid % (TBN / 4), br0 = tid / (TBN / 4);
+  const bool bv = n0 + bc * 4 < a.Cout;
+  const float* wrow = a.w + static_cast<int64_t>(br0) * a.Cout + n0 + bc * 4;
+
+  // raw slice kt into ring slot `slot`: A as TF_BM swizzled rows of 128 B,
+  // B as TF_BK rows of TBN channels
+  auto stage = [&](int slot, int kt) {
+    const uint32_t sa = s0 + slot * S::RAW_BYTES, sb = sa + S::A_BYTES;
+    const bool kv = k < Kd;
+    const int64_t tap = (static_cast<int64_t>(ky) * a.W + kx) * a.ldx + ci;
+#pragma unroll
+    for (int i = 0; i < S::A_ROWS; ++i) {
+      const bool v = kv && static_cast<unsigned>(iy0[i] + ky) < static_cast<unsigned>(a.H) &&
+                     static_cast<unsigned>(ix0[i] + kx) < static_cast<unsigned>(a.W);
+      cp_async16(sa + sw128(ar0 + i * (TF_THREADS / 8), ac), v ? a.x + row[i] + tap : a.x, v);
+    }
+    k += TF_BK;
+    ci += TF_BK;
+    while (ci >= a.Cin) {
+      ci -= a.Cin;
+      if (++kx == a.K) {
+        kx = 0;
+        ++ky;
+      }
+    }
+    const int64_t kb0 = static_cast<int64_t>(kt) * TF_BK;
+#pragma unroll
+    for (int j = 0; j < S::B_CHUNKS; ++j) {
+      const int kk = br0 + j * S::B_STEP;
+      const bool v = bv && kb0 + kk < Kd;
+      cp_async16(sb + (kk * TBN + bc * 4) * 4, v ? wrow + (kb0 + j * S::B_STEP) * a.Cout : a.w,
+                 v);
+    }
+  };
+
+  // the split pass: raw slot `slot` -> split buffer `buf`. A's chunks keep
+  // their swizzled offsets (a warp's 16-byte reads and writes contiguous);
+  // B's 4 reduction rows of one channel become one K-major chunk of row n
+  // (a warp reads 32 neighbouring channels of a row, a quarter-warp writes
+  // 8 rows' chunks, which the swizzle puts in 8 different bank groups)
+  auto split = [&](int slot, int buf) {
+    const unsigned char* ra = sm + slot * S::RAW_BYTES;
+    const float* rb = reinterpret_cast<const float*>(ra + S::A_BYTES);
+    unsigned char* ha = sm + S::SPLIT0 + buf * S::SPLIT_BYTES;
+    unsigned char* la = ha + S::A_BYTES;
+    unsigned char* hb = la + S::A_BYTES;
+    unsigned char* lb = hb + S::B_BYTES;
+    uint4 h, l;
+#pragma unroll
+    for (int i = 0; i < S::A_BYTES / 16 / TF_THREADS; ++i) {
+      const int off = (tid + i * TF_THREADS) * 16;
+      const float4 q = *reinterpret_cast<const float4*>(ra + off);
+      split_tf32({q.x, q.y, q.z, q.w}, h, l);
+      *reinterpret_cast<uint4*>(ha + off) = h;
+      *reinterpret_cast<uint4*>(la + off) = l;
+    }
+#pragma unroll
+    for (int i = 0; i < TBN * (TF_BK / 4) / TF_THREADS; ++i) {
+      const int e = tid + i * TF_THREADS, n = e % TBN, c = e / TBN;
+      split_tf32({rb[(4 * c) * TBN + n], rb[(4 * c + 1) * TBN + n], rb[(4 * c + 2) * TBN + n],
+                  rb[(4 * c + 3) * TBN + n]},
+                 h, l);
+      *reinterpret_cast<uint4*>(hb + sw128(n, c)) = h;
+      *reinterpret_cast<uint4*>(lb + sw128(n, c)) = l;
+    }
+  };
+
+  // the tensor cores add a wgmma's products to its accumulator rounding
+  // toward zero, a bias that grows with the steps one accumulator takes
+  // (on an H100, 1.15e-5 of the largest output at K = 1440 with one
+  // accumulator over the whole reduction): each slice's 12 wgmma steps
+  // start a partial sum of their own, and the partials are added into the
+  // f32 sum by FADD, rounding to nearest
+  float acc[TBN / 2], part[TBN / 2];
+#pragma unroll
+  for (int i = 0; i < TBN / 2; ++i) acc[i] = part[i] = 0.f;
+
+  for (int s = 0; s < TF_STAGES; ++s) {
+    if (s < KT) stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<TF_STAGES - 1>();  // raw slice kt has landed (this thread's part)
+    // every thread's part; and both warpgroups have waited for slice
+    // kt - 2's wgmma, the last reader of split buffer kt & 1
+    __syncthreads();
+    split(kt % TF_STAGES, kt & 1);  // while slice kt - 1's wgmma runs
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    __syncthreads();  // the split tiles are whole; raw slot kt % TF_STAGES is free
+    if (kt + TF_STAGES < KT) stage(kt % TF_STAGES, kt + TF_STAGES);
+    cp_async_commit();
+    if (kt > 0) {  // slice kt - 1's partial into the sum
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(part);
+#pragma unroll
+      for (int i = 0; i < TBN / 2; ++i) acc[i] += part[i];
+    }
+    // A: this warpgroup's 64 rows; B: TBN rows; 8-row atoms 1024 B apart
+    const uint32_t ha = s0 + S::SPLIT0 + (kt & 1) * S::SPLIT_BYTES, la = ha + S::A_BYTES;
+    const uint32_t hb = la + S::A_BYTES, lb = hb + S::B_BYTES;
+    const uint64_t dha = smem_desc(ha + wg * 64 * 128, 16, 1024);
+    const uint64_t dla = smem_desc(la + wg * 64 * 128, 16, 1024);
+    const uint64_t dhb = smem_desc(hb, 16, 1024), dlb = smem_desc(lb, 16, 1024);
+    fence_acc(part);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < TF_BK / 8; ++kk) {
+      // k8 step: 32 B further along the rows of both; small terms first,
+      // the slice's first product overwriting the partial
+      if constexpr (TBN == 128) {
+        wgmma_tf32_n128(part, dla + 2 * kk, dhb + 2 * kk, kk);
+        wgmma_tf32_n128(part, dha + 2 * kk, dlb + 2 * kk, 1);
+        wgmma_tf32_n128(part, dha + 2 * kk, dhb + 2 * kk, 1);
+      } else {
+        wgmma_tf32_n64(part, dla + 2 * kk, dhb + 2 * kk, kk);
+        wgmma_tf32_n64(part, dha + 2 * kk, dlb + 2 * kk, 1);
+        wgmma_tf32_n64(part, dha + 2 * kk, dhb + 2 * kk, 1);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(part);
+#pragma unroll
+  for (int i = 0; i < TBN / 2; ++i) acc[i] += part[i];
+  cp_async_wait<0>();
+
+  // epilogue as conv_wgmma_kernel's, in f32: bias and ReLU into a tile in
+  // shared memory over the ring, then out in 16-byte chunks of 4 channels
+  __syncthreads();  // every warp is done with the ring
+#pragma unroll
+  for (int j = 0; j < TBN / 8; ++j) {
+    const int c = j * 8 + (lane & 3) * 2, n = n0 + c;
+    const float b0 = n < a.Cout ? a.b[n] : 0.f;
+    const float b1 = n < a.Cout ? a.b[n + 1] : 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2) + hf * 8;
+      *reinterpret_cast<float2*>(sm + r * S::LDT + c * 4) =
+          make_float2(fmaxf(acc[4 * j + 2 * hf] + b0, 0.f), fmaxf(acc[4 * j + 2 * hf + 1] + b1, 0.f));
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = tid; e < TF_BM * (TBN / 4); e += TF_THREADS) {
+    const int r = e / (TBN / 4), n = n0 + (e % (TBN / 4)) * 4;
+    const int64_t m = m0 + r;
+    if (m >= a.M || n >= a.Cout) continue;
+    float* y = n < a.split ? a.y0 + m * a.ldy0 + n : a.y1 + m * a.ldy1 + (n - a.split);
+    *reinterpret_cast<uint4*>(y) = *reinterpret_cast<const uint4*>(sm + r * S::LDT + (n - n0) * 4);
   }
 }
 
@@ -893,21 +1071,14 @@ __global__ void __launch_bounds__(FrontCfg<T>::THREADS, FrontCfg<T>::BLOCKS)
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// The dispatch rule: the tensor cores take a conv whose 16-byte vectors (8
+// bf16 or 4 f32 channels) stay inside one tap and aligned, with the block
+// tile width BN that pads Cout less (128 on a tie); 0: no kernel takes it.
 template <typename T>
-int launch_fma(const Conv<T>& a, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>((a.M + BM - 1) / BM), (a.Cout + BN - 1) / BN);
-  conv_kernel<T><<<grid, NT, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch(const Conv<float>& a, cudaStream_t st) { return launch_fma(a, st); }
-
-// The dispatch rule: the tensor cores take a bf16 conv whose 16-byte
-// vectors of 8 channels stay inside one tap and aligned, with the block
-// tile width BN that pads Cout less (128 on a tie); 0: conv_kernel.
-int tc_tile(const Conv<bf16>& a) {
-  const bool tc = a.Cin % 8 == 0 && a.Cout % 8 == 0 && a.split % 8 == 0 && a.ldx % 8 == 0 &&
-                  a.ldy0 % 8 == 0 && a.ldy1 % 8 == 0 && aligned16(a.x) && aligned16(a.w) &&
+int tc_tile(const Conv<T>& a) {
+  constexpr int V = 16 / sizeof(T);
+  const bool tc = a.Cin % V == 0 && a.Cout % V == 0 && a.split % V == 0 && a.ldx % V == 0 &&
+                  a.ldy0 % V == 0 && a.ldy1 % V == 0 && aligned16(a.x) && aligned16(a.w) &&
                   aligned16(a.y0) && aligned16(a.y1);
   if (!tc) return 0;
   return a.Cout % 128 == 0 || a.Cout % 128 > 64 ? 128 : 64;
@@ -923,11 +1094,29 @@ int launch_wgmma(const Conv<bf16>& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int TBN>
+int launch_tf32x3(const Conv<float>& a, cudaStream_t st) {
+  using S = Tf<TBN>;
+  TRY(static_cast<int>(cudaFuncSetAttribute(
+      conv_tf32x3_kernel<TBN>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM)));
+  const int64_t blocks = (a.M + TF_BM - 1) / TF_BM * ((a.Cout + TBN - 1) / TBN);
+  conv_tf32x3_kernel<TBN><<<static_cast<unsigned>(blocks), TF_THREADS, S::SMEM, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch(const Conv<bf16>& a, cudaStream_t st) {
   switch (tc_tile(a)) {
     case 128: return launch_wgmma<128>(a, st);
     case 64: return launch_wgmma<64>(a, st);
-    default: return launch_fma(a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);  // the rule refuses it
+  }
+}
+
+int launch(const Conv<float>& a, cudaStream_t st) {
+  switch (tc_tile(a)) {
+    case 128: return launch_tf32x3<128>(a, st);
+    case 64: return launch_tf32x3<64>(a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);  // the rule refuses it
   }
 }
 
@@ -1153,6 +1342,8 @@ extern "C" int srcf_conv_f32(CONV_ARGS, void* stream) {
 extern "C" int srcf_conv_bf16(CONV_ARGS, void* stream) {
   return launch(MAKE_CONV(bf16), static_cast<cudaStream_t>(stream));
 }
-// the tile srcf_conv_bf16 would launch for these arguments (tc_tile):
-// 64 or 128 on the tensor cores, 0 on conv_kernel; launches nothing
+// the tile srcf_conv_f32 / srcf_conv_bf16 would launch for these arguments
+// (tc_tile): 64 or 128 on the tensor cores, 0 for a conv the rule refuses
+// (srcf_conv_* returns an error for it); launches nothing
+extern "C" int srcf_conv_f32_tile(CONV_ARGS) { return tc_tile(MAKE_CONV(float)); }
 extern "C" int srcf_conv_bf16_tile(CONV_ARGS) { return tc_tile(MAKE_CONV(bf16)); }

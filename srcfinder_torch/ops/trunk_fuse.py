@@ -17,10 +17,12 @@ with BN-folded weights (``models.googlenet.fold_state_dict``):
 For tensors on the CPU each runs its plain PyTorch version
 (``*_ref``, built from ``F.conv2d``/``F.max_pool2d``); for CUDA tensors it
 launches ``csrc/trunk.cu`` (built for ``sm_90a`` at first use) and raises
-if it cannot. In bf16 the convolutions run on the tensor cores: every conv
-of the segments and ``fused_stage12``'s conv3 through the dispatch of
+if it cannot. The convolutions run on the tensor cores, bf16 as bf16 and
+f32 as three TF32 products of a hi/lo split (3xTF32, f32-accurate): every
+conv of the segments and ``fused_stage12``'s conv3 through the dispatch of
 :func:`tensor_core_ok` (:func:`conv_plan` lists them; :func:`conv` runs
-one of them alone), its conv1 and conv2 inside its front kernel. The
+one of them alone, :func:`conv_tile` says which kernel takes it), its
+conv1 and conv2 inside its front kernel. The
 kernels replace the JAX package's Pallas kernels
 ``ops/trunk_fuse.py::fused_stage12`` (git be3cd8d) and
 ``ops/trunk_fuse.py::fused_trunk_segment`` (git ca79403). Both versions
@@ -89,7 +91,10 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNEL = CudaKernel("trunk.cu", {**{f"srcf_{n}_{s}": _STAGE12_SIG if n == "fused_stage12" else _SIG
                                     for n in _NAMES for s in _SUFFIX.values()},
                                  **{f"srcf_conv_{s}": _CONV_SIG for s in _SUFFIX.values()},
-                                 "srcf_conv_bf16_tile": _CONV_SIG[:-1]})
+                                 **{f"srcf_conv_{s}_tile": _CONV_SIG[:-1]
+                                    for s in _SUFFIX.values()}})
+#: channels in a 16-byte vector, the unit the tensor-core kernels stage
+_VECTOR = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def launches(name: str) -> int:
@@ -395,13 +400,17 @@ def conv_plan(name, side):
 
 
 def tensor_core_ok(c: ConvLaunch, dtype=torch.bfloat16) -> bool:
-    """The dispatch rule of ``csrc/trunk.cu`` (``launch``) for a conv on
-    16-byte-aligned maps: the tensor-core kernel takes it in bf16 when
-    every channel count, offset and pixel stride is a multiple of 8, so a
-    16-byte vector of 8 channels stays inside one tap and aligned; the
-    rest run on the FMA kernel."""
-    return dtype == torch.bfloat16 and all(
-        v % 8 == 0 for v in (c.cin, c.ldx, c.x_off, c.cout, c.split, c.ldy0, c.y_off, c.ldy1))
+    """The dispatch rule of ``csrc/trunk.cu`` (``launch``, ``tc_tile``) for
+    a conv on 16-byte-aligned maps: the tensor-core kernel of ``dtype``
+    (bf16 on wgmma, f32 as 3xTF32 on wgmma) takes it when every channel
+    count, offset and pixel stride is a multiple of the 16-byte vector (8
+    bf16 or 4 f32 channels), so a vector stays inside one tap and aligned
+    (a map whose pointer lies off 16 bytes counts as a channel offset of
+    that many elements); no kernel takes the rest (:func:`conv` raises on
+    a card)."""
+    v = _VECTOR[dtype]
+    return all(n % v == 0 for n in (c.cin, c.ldx, c.x_off, c.cout, c.split, c.ldy0, c.y_off,
+                                    c.ldy1))
 
 
 # ---- CUDA wrappers ---------------------------------------------------------
@@ -499,7 +508,7 @@ def conv(x, k, b, y0, y1=None, stride=1, pad=0):
     channel slice of a wider one (``X[..., c0:c1]``), as the segments read
     and write them (:func:`conv_plan`). Plain version on the CPU; on a card
     the single-conv entry of ``csrc/trunk.cu`` with the segments' dispatch
-    (:func:`tensor_core_ok`)."""
+    (:func:`tensor_core_ok`), which raises for a conv the rule refuses."""
     if x.device.type == "cpu":
         _conv_kernel_side(x, k, y0, y1, stride, pad)
         out = _nhwc(_conv_ref(_nchw(x), k, b, stride, pad))
@@ -515,12 +524,12 @@ def conv(x, k, b, y0, y1=None, stride=1, pad=0):
 
 
 def conv_tile(x, k, b, y0, y1=None, stride=1, pad=0):
-    """The block tile width the card's dispatch picks for :func:`conv` of
-    these bf16 CUDA tensors: 64 or 128 on the tensor-core kernel, 0 on
-    the FMA kernel. Launches nothing."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError("conv_tile: the tensor-core dispatch is for bf16")
-    return KERNEL.load().srcf_conv_bf16_tile(*_conv_args(x, k, b, y0, y1, stride, pad))
+    """The block tile width the card's dispatch (``tc_tile`` of
+    ``csrc/trunk.cu``) picks for :func:`conv` of these CUDA tensors: 64 or
+    128 on the tensor-core kernel of their dtype, 0 for a conv the rule
+    refuses. Launches nothing."""
+    args = _conv_args(x, k, b, y0, y1, stride, pad)
+    return getattr(KERNEL.load(), f"srcf_conv_{_SUFFIX[x.dtype]}_tile")(*args)
 
 
 def _windows(plane, origins, dim):

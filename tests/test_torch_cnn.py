@@ -343,15 +343,44 @@ def test_scratch_plan_holds_branch4_pooled_maps(side):
 @pytest.mark.parametrize("name,side,convs", [("trunk_s23", 128, 10), ("trunk_s45", 16, 28),
                                              ("trunk_s3", 32, 8)])
 def test_conv_plan_meets_tensor_core_rule(name, side, convs):
-    """Every conv of P3 meets the tensor-core kernel's alignment rule in
-    bf16, and none in f32; P2 launches only conv3 through the dispatch
-    (its conv1 and conv2 run inside its front kernel), and conv3 meets it."""
+    """Every conv of P3 meets the tensor-core kernels' alignment rule in
+    bf16 and in f32 (3xTF32); P2 launches only conv3 through the dispatch
+    (its conv1 and conv2 run inside its front kernel), and conv3 meets it
+    in both dtypes."""
     plan = tf.conv_plan(name, side)
     assert len(plan) == convs and len({c.layer for c in plan}) == convs
     assert all(tf.tensor_core_ok(c) for c in plan)
-    assert not any(tf.tensor_core_ok(c, F32) for c in plan)
+    assert all(tf.tensor_core_ok(c, F32) for c in plan)
     p2 = tf.conv_plan("fused_stage12", 256)
-    assert [(c.layer, c.side, tf.tensor_core_ok(c)) for c in p2] == [("conv3", 64, True)]
+    assert [(c.layer, c.side, tf.tensor_core_ok(c), tf.tensor_core_ok(c, F32))
+            for c in p2] == [("conv3", 64, True, True)]
+
+
+@pytest.mark.parametrize("dtype,cin,x_off,shift,cout,ok", [
+    (F32, 8, 0, 0, 16, True),      # the rule met (the 64-wide tile pads 16 channels less)
+    (F32, 8, 0, 0, 208, True),     # met (208 = 128 + 80: the 128-wide tile pads less)
+    (F32, 6, 0, 0, 16, False),     # 6 channels: a vector of 4 would cross a tap
+    (F32, 8, 2, 0, 16, False),     # channel offset 2: the vectors lie off 16 bytes
+    (F32, 8, 0, 1, 16, False),     # the map 4 bytes off 16-byte alignment
+    (BF16, 8, 4, 0, 16, False)])   # bf16 vectors hold 8 channels: offset 4 is refused
+def test_tensor_core_rule_on_maps(dtype, cin, x_off, shift, cout, ok):
+    """The dispatch rule on maps laid out as the segments lay them, the
+    map's pointer offset from 16 bytes counted as a channel offset:
+    tensor_core_ok refuses in f32 a channel count, an offset or a pointer
+    that would put a 16-byte vector of 4 channels across a tap or off its
+    alignment. The conv itself runs on the CPU whatever the rule says."""
+    g = torch.Generator().manual_seed(5)
+    flat = torch.randn(shift + 2 * 3 * 3 * 16, generator=g).to(dtype)
+    X = flat[shift:].view(2, 3, 3, 16)
+    x = X[..., x_off:x_off + cin]
+    k, b = torch.randn(cin, cout, generator=g).to(dtype), torch.randn(1, cout, generator=g).to(dtype)
+    y = torch.full((2, 3, 3, cout), float("nan"), dtype=dtype)
+    assert flat.data_ptr() % 16 == 0
+    off = x.data_ptr() % 16 // x.element_size()
+    c = tf.ConvLaunch("probe", 3, cin, 16, off, cout, 1, 1, 0, cout, 0, cout, cout)
+    assert tf.tensor_core_ok(c, dtype) == ok
+    tf.conv(x, k, b, y)
+    torch.testing.assert_close(y, tf._nhwc(tf._conv_ref(tf._nchw(x), k, b)), rtol=0, atol=0)
 
 
 def _replay(name, x, ws):
