@@ -29,6 +29,7 @@ Port of the JAX package's ``flow/ime_worker.py`` (host numpy, as there).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -37,6 +38,7 @@ import pandas as pd
 from ..core.morphology import imlabel, mergelabels, remove_small_objects
 from ..core.physics import ime
 from ..core.geo import gcdist, sl2latlon
+from ..trace import span
 
 __all__ = ["detection_ime_stats", "compute_ime_for_cmf",
            "merge_ime_into_plumelist", "IME_JOB_PARAMS", "main"]
@@ -85,28 +87,30 @@ def detection_ime_stats(cmf, mapinfo_dict, ppmmthr=None, fetchmax=None,
     cmf = np.asarray(cmf, np.float32)
     valid = cmf != nodata
     ps = float(mapinfo_dict["xps"])
-    det = (cmf >= ppmmthr) & valid
-    lab0 = remove_small_objects(imlabel(det), min_size=minarea)
+    with span("ime.label"):
+        det = (cmf >= ppmmthr) & valid
+        lab0 = remove_small_objects(imlabel(det), min_size=minarea)
 
     rows = []
-    for md in mergedists:
-        md_px = max(int(round(md / ps)), 1)
-        lab = mergelabels(lab0, md_px)
-        for plume_id in np.unique(lab[lab > 0]):
-            mask = lab == plume_id
-            pix = cmf[mask]
-            ime_kg = ime(np.clip(pix, 0, None), ps)
-            fetch = _plume_fetch(mask, ps, fetchmax)
-            rr, cc = np.nonzero(mask)
-            r0, c0 = float(rr.mean()), float(cc.mean())
-            lat, lon = sl2latlon(c0, r0, mapinfo=mapinfo_dict)
-            rows.append(dict(mergedist_m=md, plume=int(plume_id),
-                             area_px=int(mask.sum()), ime_kg=ime_kg,
-                             fetch_m=fetch,
-                             ime_div_fetch=ime_kg / fetch if fetch else np.nan,
-                             aspect=_plume_aspect(mask),
-                             row=r0, col=c0, lat=float(lat),
-                             lon=float(lon)))
+    with span("ime.merge"):
+        for md in mergedists:
+            md_px = max(int(round(md / ps)), 1)
+            lab = mergelabels(lab0, md_px)
+            for plume_id in np.unique(lab[lab > 0]):
+                mask = lab == plume_id
+                pix = cmf[mask]
+                ime_kg = ime(np.clip(pix, 0, None), ps)
+                fetch = _plume_fetch(mask, ps, fetchmax)
+                rr, cc = np.nonzero(mask)
+                r0, c0 = float(rr.mean()), float(cc.mean())
+                lat, lon = sl2latlon(c0, r0, mapinfo=mapinfo_dict)
+                rows.append(dict(mergedist_m=md, plume=int(plume_id),
+                                 area_px=int(mask.sum()), ime_kg=ime_kg,
+                                 fetch_m=fetch,
+                                 ime_div_fetch=ime_kg / fetch if fetch else np.nan,
+                                 aspect=_plume_aspect(mask),
+                                 row=r0, col=c0, lat=float(lat),
+                                 lon=float(lon)))
     return pd.DataFrame(rows, columns=[
         "mergedist_m", "plume", "area_px", "ime_kg", "fetch_m",
         "ime_div_fetch", "aspect", "row", "col", "lat", "lon"])
@@ -114,13 +118,20 @@ def detection_ime_stats(cmf, mapinfo_dict, ppmmthr=None, fetchmax=None,
 
 def compute_ime_for_cmf(cmf_path, out_csv=None, **params):
     """CMF product -> IME stats CSV + the AvgIMEdivFetch20/
-    StdIMEdivFetch20 summary consumed by the emission-rate stage."""
+    StdIMEdivFetch20 summary consumed by the emission-rate stage. Spans
+    (:mod:`srcfinder_torch.trace`): "ime.read" (the product, read whole),
+    "ime.label" (threshold, labels, small objects), "ime.merge" (the merge
+    distances and each plume's statistics) and "ime.write" (the CSV), the
+    file spans counting their ``bytes``."""
     from ..core.loaders import loadcmf
 
-    cmf, _, _, m = loadcmf(cmf_path)
+    with span("ime.read", bytes=os.path.getsize(cmf_path)):
+        cmf, _, _, m = loadcmf(cmf_path)
     df = detection_ime_stats(cmf, m, **params)
     if out_csv:
-        df.to_csv(out_csv, index=False)
+        with span("ime.write") as s:
+            df.to_csv(out_csv, index=False)
+            s.count(bytes=os.path.getsize(out_csv))
     if len(df):
         # the "20" suffix names the 20 m merge distance; use the nearest
         # available distance when 20 m is not in MERGEDISTS

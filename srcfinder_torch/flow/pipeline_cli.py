@@ -41,6 +41,7 @@ from ..detect.fcn_pipeline import fcn_saliency_image, load_saliency_model
 from ..detect.salience import salience2detections, save_detections
 from ..device import resolve_device
 from ..masks.cli import flightline_mask_config, mask_output_name, masks_for_flightline
+from ..trace import Stage, span, spans
 from .deploy import JobQueue, watch_and_trigger
 from .ime_worker import compute_ime_for_cmf, merge_ime_into_plumelist
 from .msf_flow import insert_plumes_in_file, process_plumes
@@ -55,23 +56,6 @@ def _finalize(*pairs):
         for ext in ("", ".hdr"):
             if os.path.exists(part + ext):
                 os.replace(part + ext, final + ext)
-
-
-class _Stage:
-    """Wall-clock timer of one stage, recorded into ``timers[name]``."""
-
-    def __init__(self, name, timers, progress):
-        self.name, self.timers, self.progress = name, timers, progress
-
-    def __enter__(self):
-        self.t0 = time.time()
-        self.progress(f"[STAGE] {self.name}")
-        return self
-
-    def __exit__(self, *exc):
-        self.timers[self.name] = time.time() - self.t0
-        self.progress(f"[STAGE] {self.name} done in "
-                      f"{self.timers[self.name]:.1f}s")
 
 
 def _masks_config_ok(radiance, progress) -> bool:
@@ -96,11 +80,22 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
                    dtype="float32", fcn_dtype="float32", bgmodes: int = 1,
                    col_chunk: int = 256, progress=print, device="cuda"):
     """Run all stages for one flightline; returns a dict of products
-    (paths) plus ``timers`` (seconds per stage; the fused stage's two
-    phases also as "read+masks" and "cmf phase") and, after a fused
-    stage, "read+masks parts" (seconds of the disk reads, the slab taps,
-    the pixel tests, the host growth and the block waits; the reads and
-    taps run in a reader thread beside the rest).
+    (paths) plus ``timers``, ``spans`` and, after a fused stage, "read+masks
+    parts" (seconds of the disk reads, the slab taps, the pixel tests, the
+    host growth and the block waits; the reads and taps run in a reader
+    thread beside the rest).
+
+    ``timers``: seconds of each stage run ("cmf", "masks", "fcn",
+    "salience", "ime", "msf-flow"; the fused "cmf+masks (fused single-pass
+    read)" and its two phases "read+masks" and "cmf phase"), each its
+    stage span's duration; a stage on a card synchronises it before its
+    clock stops. ``spans``: the flightline's :mod:`srcfinder_torch.trace`
+    spans, in the order they closed: the root "run_flightline", a span per
+    stage, and their children ("cmf.read", "cmf.h2d", a "cmf.chunk" and a
+    "cmf.stats" per column chunk, "cmf.write", "fcn.read", "fcn.model",
+    "fcn.forward", "fcn.write", "salience.read", "salience.detect",
+    "salience.write", "ime.read", "ime.label", "ime.merge", "ime.write"),
+    the file and copy spans counting their ``bytes``.
 
     ``dtype``: the CMF's precision; ``fcn_dtype``: the FCN trunk's
     ("float32" or "bfloat16"). ``bgmodes``: the CMF's background modes
@@ -112,159 +107,174 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
     ``device``: "cuda" (default; raises without a card) or "cpu"; the
     emission stage's nearest-cell search runs there too.
     """
-    dev = resolve_device(device)
-    os.makedirs(outdir, exist_ok=True)
-    stem = os.path.splitext(os.path.basename(radiance))[0]
-    lid = stem.split("_")[0]
-    products: dict = {}
-    timers: dict = {}
+    with span("run_flightline") as root:
+        dev = resolve_device(device)
+        os.makedirs(outdir, exist_ok=True)
+        stem = os.path.splitext(os.path.basename(radiance))[0]
+        lid = stem.split("_")[0]
+        products: dict = {}
+        timers: dict = {}
 
-    # ---- L2 + L2b: CMF and spectrometer masks ----------------------------
-    cmff = os.path.join(outdir, stem.replace("_rdn", "_cmf")
-                        if "_rdn" in stem else stem + "_cmf")
-    products["cmf"] = cmff
-    need_cmf = not os.path.exists(cmff)
-    if not need_cmf:
-        progress(f"[SKIP] CMF exists: {cmff}")
-    need_masks = False
-    if do_masks:
-        mskname = mask_output_name(stem)
-        mskf = os.path.join(outdir, mskname)
-        products["masks"] = mskf
-        if os.path.exists(mskf):
-            progress(f"[SKIP] masks exist: {mskf}")
-        elif _masks_config_ok(radiance, progress):
-            need_masks = True
-        else:
-            products["masks"] = None
-
-    if need_cmf and need_masks:
-        with _Stage("cmf+masks (fused single-pass read)", timers, progress):
-            rdn = envi_io.open_envi(radiance)
-            a0, a1 = active_range_for_library(library)
-            a0 -= 1
-            rgb_bands = (60, 42, 24)
-            slab = np.empty((rdn.nrows, rdn.ncols, a1 - a0), np.float32)
-            rgb = np.empty((rdn.nrows, rdn.ncols, 3), np.float32)
-
-            def tap(r0, r1, blk, pos):
-                # the active range is a contiguous run of the union band
-                # list, so its positions are consecutive
-                p0 = pos[a0]
-                slab[r0:r1] = blk[:, :, p0:p0 + (a1 - a0)]
-                rgb[r0:r1] = blk[:, :, [pos[b] for b in rgb_bands]]
-
-            t0 = time.time()
-            products["read+masks parts"] = parts = {}
-            masks_for_flightline(radiance, outdir, out_name=mskname + ".part",
-                                 device=dev, tap=tap,
-                                 tap_bands=list(range(a0, a1)) + list(rgb_bands),
-                                 timers=parts)
-            timers["read+masks"] = time.time() - t0
-            progress(f"[PHASE] read+masks done in {timers['read+masks']:.1f}s")
-            t0 = time.time()
-            robust_mf_image(radiance, library, cmff + ".part", bgmodes=bgmodes,
-                            dtype=np.dtype(dtype).type, col_chunk=col_chunk,
-                            rgb_bands=rgb_bands, preloaded=(slab, rgb), device=dev)
-            timers["cmf phase"] = time.time() - t0
-            progress(f"[PHASE] cmf done in {timers['cmf phase']:.1f}s")
-            _finalize((mskf + ".part", mskf), (cmff + ".part", cmff))
-    else:
-        if need_cmf:
-            with _Stage("cmf", timers, progress):
-                robust_mf_image(radiance, library, cmff + ".part", bgmodes=bgmodes,
-                                dtype=np.dtype(dtype).type, col_chunk=col_chunk,
-                                device=dev)
-                _finalize((cmff + ".part", cmff))
-        if need_masks:
-            with _Stage("masks", timers, progress):
-                masks_for_flightline(radiance, outdir, out_name=mskname + ".part",
-                                     device=dev)
-                _finalize((mskf + ".part", mskf))
-
-    # ---- L3: FCN saliency ------------------------------------------------
-    salf = os.path.join(outdir, os.path.basename(cmff) + "_saliency")
-    products["saliency"] = salf
-    if os.path.exists(salf):
-        progress(f"[SKIP] saliency exists: {salf}")
-    else:
-        with _Stage("fcn", timers, progress):
-            img = envi_io.open_envi(cmff)
-            band = np.asarray(img.read_band(-1), dtype=np.float32)
-            model = load_saliency_model(weights, dtype=getattr(torch, fcn_dtype),
-                                        device=dev)
-            sal = fcn_saliency_image(band, model, model_name=model_name,
-                                     method=method, device=dev)
-            meta = {"data ignore value": -9999}
-            if "map info" in img.metadata:
-                meta["map info"] = img.metadata["map info"]
-            envi_io.save_envi(salf + ".part.hdr", sal.cpu().numpy(),
-                              metadata=meta, interleave="bip")
-            _finalize((salf + ".part", salf))
-
-    # ---- L4: candidates --------------------------------------------------
-    detdir = os.path.join(outdir, os.path.basename(cmff) + "_detections")
-    detname = "_".join([os.path.basename(cmff), "v2",
-                        f"minsal{prob_thr:.2f}",
-                        f"minppmm{ppmm_thr:.1f}"]).replace(".", "p")
-    xlsxf = os.path.join(detdir, detname + ".xlsx")
-    csvf = os.path.splitext(xlsxf)[0] + ".csv"
-    products["detections_xlsx"] = xlsxf
-    products["detections_csv"] = csvf
-    if os.path.exists(csvf):
-        progress(f"[SKIP] detections exist: {csvf}")
-    else:
-        with _Stage("salience", timers, progress):
-            os.makedirs(detdir, exist_ok=True)
-            cmfimg = envi_io.open_envi(cmff)
-            salmm = envi_io.open_envi(salf).load().squeeze()
-            detdf = salience2detections(salmm, cmfimg.load(), prob_thr,
-                                        ppmm_thr, lid, mapinfo(cmfimg), detdir,
-                                        quicklooks=quicklooks)
-            if len(detdf):
-                save_detections(xlsxf, detdf)
+        # ---- L2 + L2b: CMF and spectrometer masks ----------------------------
+        cmff = os.path.join(outdir, stem.replace("_rdn", "_cmf")
+                            if "_rdn" in stem else stem + "_cmf")
+        products["cmf"] = cmff
+        need_cmf = not os.path.exists(cmff)
+        if not need_cmf:
+            progress(f"[SKIP] CMF exists: {cmff}")
+        need_masks = False
+        if do_masks:
+            mskname = mask_output_name(stem)
+            mskf = os.path.join(outdir, mskname)
+            products["masks"] = mskf
+            if os.path.exists(mskf):
+                progress(f"[SKIP] masks exist: {mskf}")
+            elif _masks_config_ok(radiance, progress):
+                need_masks = True
             else:
-                progress("[INFO] no detections above thresholds")
-                products["detections_xlsx"] = None
-                products["detections_csv"] = None
+                products["masks"] = None
 
-    # ---- L5: IME ---------------------------------------------------------
-    if do_ime:
-        imef = os.path.join(outdir, os.path.basename(cmff) + "_ime.csv")
-        products["ime_csv"] = imef
-        if os.path.exists(imef):
-            progress(f"[SKIP] IME exists: {imef}")
+        if need_cmf and need_masks:
+            with Stage("cmf+masks (fused single-pass read)", timers, progress, dev):
+                rdn = envi_io.open_envi(radiance)
+                a0, a1 = active_range_for_library(library)
+                a0 -= 1
+                rgb_bands = (60, 42, 24)
+                slab = np.empty((rdn.nrows, rdn.ncols, a1 - a0), np.float32)
+                rgb = np.empty((rdn.nrows, rdn.ncols, 3), np.float32)
+
+                def tap(r0, r1, blk, pos):
+                    # the active range is a contiguous run of the union band
+                    # list, so its positions are consecutive
+                    p0 = pos[a0]
+                    slab[r0:r1] = blk[:, :, p0:p0 + (a1 - a0)]
+                    rgb[r0:r1] = blk[:, :, [pos[b] for b in rgb_bands]]
+
+                products["read+masks parts"] = parts = {}
+                with span("read+masks") as phase:
+                    masks_for_flightline(radiance, outdir, out_name=mskname + ".part",
+                                         device=dev, tap=tap,
+                                         tap_bands=list(range(a0, a1)) + list(rgb_bands),
+                                         timers=parts)
+                timers["read+masks"] = phase.seconds
+                progress(f"[PHASE] read+masks done in {timers['read+masks']:.1f}s")
+                with span("cmf phase") as phase:
+                    robust_mf_image(radiance, library, cmff + ".part", bgmodes=bgmodes,
+                                    dtype=np.dtype(dtype).type, col_chunk=col_chunk,
+                                    rgb_bands=rgb_bands, preloaded=(slab, rgb), device=dev)
+                timers["cmf phase"] = phase.seconds
+                progress(f"[PHASE] cmf done in {timers['cmf phase']:.1f}s")
+                _finalize((mskf + ".part", mskf), (cmff + ".part", cmff))
         else:
-            with _Stage("ime", timers, progress):
-                compute_ime_for_cmf(cmff, out_csv=imef)
+            if need_cmf:
+                with Stage("cmf", timers, progress, dev):
+                    robust_mf_image(radiance, library, cmff + ".part", bgmodes=bgmodes,
+                                    dtype=np.dtype(dtype).type, col_chunk=col_chunk,
+                                    device=dev)
+                    _finalize((cmff + ".part", cmff))
+            if need_masks:
+                with Stage("masks", timers, progress, dev):
+                    masks_for_flightline(radiance, outdir, out_name=mskname + ".part",
+                                         device=dev)
+                    _finalize((mskf + ".part", mskf))
 
-    # ---- L5b: winds / emissions ------------------------------------------
-    if winds and products["detections_csv"] and os.path.exists(products["detections_csv"]):
-        outcsv = os.path.join(outdir, stem + "_plumes_enriched.csv")
-        products["enriched_csv"] = outcsv
-        if os.path.exists(outcsv):
-            progress(f"[SKIP] enriched list exists: {outcsv}")
+        # ---- L3: FCN saliency ------------------------------------------------
+        salf = os.path.join(outdir, os.path.basename(cmff) + "_saliency")
+        products["saliency"] = salf
+        if os.path.exists(salf):
+            progress(f"[SKIP] saliency exists: {salf}")
         else:
-            with _Stage("msf-flow", timers, progress):
-                # the plume list's name carries the minppmm tag msf-flow
-                # parses (msf_flow.py:124-144)
-                tagged = os.path.join(outdir, f"{stem}_plumes_minppmm{int(ppmm_thr)}.csv")
-                pdf = pd.read_csv(products["detections_csv"])
-                imef = products.get("ime_csv")
-                if imef and os.path.exists(imef):
-                    # attach AvgIMEdivFetch20/StdIMEdivFetch20/Aspect ratio20,
-                    # the emission rate's inputs (the reference's compute-ime
-                    # job updates the plume list the same way)
-                    try:
-                        ime_df = pd.read_csv(imef)
-                    except pd.errors.EmptyDataError:   # zero detections
-                        ime_df = pd.DataFrame()
-                    merge_ime_into_plumelist(pdf, ime_df)
-                pdf.to_csv(tagged, index=False)
-                plumes = process_plumes([tagged], winds, ext=wind_ext, device=dev)
-                insert_plumes_in_file(plumes, outcsv)
+            with Stage("fcn", timers, progress, dev):
+                with span("fcn.read") as s:
+                    img = envi_io.open_envi(cmff)
+                    # a BIP product is read whole for its last band
+                    band = np.asarray(img.read_band(-1), dtype=np.float32)
+                    s.count(bytes=os.path.getsize(cmff))
+                with span("fcn.model", bytes=os.path.getsize(weights)):
+                    model = load_saliency_model(weights, dtype=getattr(torch, fcn_dtype),
+                                                device=dev)
+                with span("fcn.forward") as s:
+                    sal = fcn_saliency_image(band, model, model_name=model_name,
+                                             method=method, device=dev).cpu().numpy()
+                    s.count(bytes=sal.nbytes)
+                with span("fcn.write", bytes=sal.nbytes):
+                    meta = {"data ignore value": -9999}
+                    if "map info" in img.metadata:
+                        meta["map info"] = img.metadata["map info"]
+                    envi_io.save_envi(salf + ".part.hdr", sal, metadata=meta,
+                                      interleave="bip")
+                    _finalize((salf + ".part", salf))
 
-    products["timers"] = timers
+        # ---- L4: candidates --------------------------------------------------
+        detdir = os.path.join(outdir, os.path.basename(cmff) + "_detections")
+        detname = "_".join([os.path.basename(cmff), "v2",
+                            f"minsal{prob_thr:.2f}",
+                            f"minppmm{ppmm_thr:.1f}"]).replace(".", "p")
+        xlsxf = os.path.join(detdir, detname + ".xlsx")
+        csvf = os.path.splitext(xlsxf)[0] + ".csv"
+        products["detections_xlsx"] = xlsxf
+        products["detections_csv"] = csvf
+        if os.path.exists(csvf):
+            progress(f"[SKIP] detections exist: {csvf}")
+        else:
+            with Stage("salience", timers, progress, dev):
+                os.makedirs(detdir, exist_ok=True)
+                with span("salience.read") as s:
+                    cmfimg = envi_io.open_envi(cmff)
+                    salmm = envi_io.open_envi(salf).load().squeeze()
+                    cmfarr = cmfimg.load()
+                    s.count(bytes=salmm.nbytes + cmfarr.nbytes)
+                with span("salience.detect"):
+                    detdf = salience2detections(salmm, cmfarr, prob_thr,
+                                                ppmm_thr, lid, mapinfo(cmfimg), detdir,
+                                                quicklooks=quicklooks)
+                if len(detdf):
+                    with span("salience.write") as s:
+                        save_detections(xlsxf, detdf)
+                        s.count(bytes=os.path.getsize(xlsxf) + os.path.getsize(csvf))
+                else:
+                    progress("[INFO] no detections above thresholds")
+                    products["detections_xlsx"] = None
+                    products["detections_csv"] = None
+
+        # ---- L5: IME ---------------------------------------------------------
+        if do_ime:
+            imef = os.path.join(outdir, os.path.basename(cmff) + "_ime.csv")
+            products["ime_csv"] = imef
+            if os.path.exists(imef):
+                progress(f"[SKIP] IME exists: {imef}")
+            else:
+                with Stage("ime", timers, progress, dev):
+                    compute_ime_for_cmf(cmff, out_csv=imef)
+
+        # ---- L5b: winds / emissions ------------------------------------------
+        if winds and products["detections_csv"] and os.path.exists(products["detections_csv"]):
+            outcsv = os.path.join(outdir, stem + "_plumes_enriched.csv")
+            products["enriched_csv"] = outcsv
+            if os.path.exists(outcsv):
+                progress(f"[SKIP] enriched list exists: {outcsv}")
+            else:
+                with Stage("msf-flow", timers, progress, dev):
+                    # the plume list's name carries the minppmm tag msf-flow
+                    # parses (msf_flow.py:124-144)
+                    tagged = os.path.join(outdir, f"{stem}_plumes_minppmm{int(ppmm_thr)}.csv")
+                    pdf = pd.read_csv(products["detections_csv"])
+                    imef = products.get("ime_csv")
+                    if imef and os.path.exists(imef):
+                        # attach AvgIMEdivFetch20/StdIMEdivFetch20/Aspect ratio20,
+                        # the emission rate's inputs (the reference's compute-ime
+                        # job updates the plume list the same way)
+                        try:
+                            ime_df = pd.read_csv(imef)
+                        except pd.errors.EmptyDataError:   # zero detections
+                            ime_df = pd.DataFrame()
+                        merge_ime_into_plumelist(pdf, ime_df)
+                    pdf.to_csv(tagged, index=False)
+                    plumes = process_plumes([tagged], winds, ext=wind_ext, device=dev)
+                    insert_plumes_in_file(plumes, outcsv)
+
+        products["timers"] = timers
+    products["spans"] = spans(root.trace_id)
     return products
 
 

@@ -324,6 +324,117 @@ def test_pipeline_cli_bf16_dilated(flightline, run32, capsys):
     assert np.abs(sal - ref).max() < 2e-2
 
 
+# ---- the flightline's spans (srcfinder_torch.trace) -----------------------
+# each stage's child spans, in the order they open; the fused stage's CMF
+# phase reads no radiance of its own
+CHILDREN = {"cmf": ["cmf.read", "cmf.h2d", "cmf.chunk", "cmf.stats", "cmf.write"],
+            "cmf phase": ["cmf.h2d", "cmf.chunk", "cmf.stats", "cmf.write"],
+            "fcn": ["fcn.read", "fcn.model", "fcn.forward", "fcn.write"],
+            "salience": ["salience.read", "salience.detect", "salience.write"],
+            "ime": ["ime.read", "ime.label", "ime.merge", "ime.write"]}
+
+
+@pytest.fixture(scope="module")
+def run_spans(flightline):
+    """The f32 run on a radiance of its own directory, so that the column
+    stats CSV beside it is this run's alone."""
+    d, rdn, _, _ = flightline
+    own = d / "spans"
+    os.makedirs(own)
+    for ext in ("", ".hdr"):
+        os.symlink(rdn + ext, own / (os.path.basename(rdn) + ext))
+    log = []
+    return _run(flightline, "outspans", "float32", log,
+                rdn=str(own / os.path.basename(rdn))), log
+
+
+def _by_name(prods):
+    out = {}
+    for s in prods["spans"]:
+        out.setdefault(s.name, []).append(s)
+    return out
+
+
+@pytest.mark.parametrize("which", ["run_spans", "run_masks"])
+def test_flightline_span_tree(request, which):
+    prods, log = request.getfixturevalue(which)
+    spans = prods["spans"]
+    (root,) = [s for s in spans if s.parent_id is None]
+    assert root.name == "run_flightline" and spans[-1] is root
+    assert {s.trace_id for s in spans} == {root.span_id}
+    ids = {s.span_id: s for s in spans}
+    stages = [s for s in spans if s.parent_id == root.span_id]
+    assert [s.name for s in sorted(stages, key=lambda s: s.start_ns)] == \
+        [m[len("[STAGE] "):] for m in log if m.startswith("[STAGE]")][::2]
+    by = _by_name(prods)
+    if which == "run_masks":
+        (fused,) = by["cmf+masks (fused single-pass read)"]
+        assert [s.parent_id for s in by["read+masks"] + by["cmf phase"]] == [fused.span_id] * 2
+        assert "cmf.read" not in by
+    for parent, kids in CHILDREN.items():
+        if parent not in by:
+            continue
+        (p,) = by[parent]
+        got = sorted((s for s in spans if s.parent_id == p.span_id), key=lambda s: s.start_ns)
+        assert [s.name for s in got] == kids, parent
+    for s in spans:
+        if s is not root:
+            up = ids[s.parent_id]
+            assert up.start_ns <= s.start_ns <= s.end_ns <= up.end_ns, s
+
+
+@pytest.mark.parametrize("which", ["run_spans", "run_masks"])
+def test_stage_spans_are_the_timers(request, which):
+    prods, _ = request.getfixturevalue(which)
+    by = _by_name(prods)
+    assert prods["timers"] and all(len(by[name]) == 1 for name in prods["timers"])
+    assert prods["timers"] == {name: by[name][0].seconds for name in prods["timers"]}
+
+
+def _file_bytes(prods, name):
+    """What each file and copy span should count: the size of the files it
+    reads or writes whole, or the nbytes of the arrays it reads or copies."""
+    size = os.path.getsize
+    cmf = open_envi(prods["cmf"])
+    lines, samples = cmf.nrows, cmf.ncols
+    colcsv = os.path.join(os.path.dirname(prods["cmf"]), "..", "spans",
+                          "ang20200924t211102_rdn_v2y1_img_column_stats.csv")
+    return {
+        "cmf.read": lines * samples * (72 + 3) * 4,   # the active window and RGB, f32
+        "cmf.h2d": lines * samples * 72 * 4,
+        "cmf.write": size(prods["cmf"]) + size(colcsv),
+        "fcn.read": size(prods["cmf"]),
+        "fcn.forward": lines * samples * 4,
+        "fcn.write": size(prods["saliency"]),
+        "salience.read": size(prods["cmf"]) + size(prods["saliency"]),
+        "salience.write": size(prods["detections_xlsx"]) + size(prods["detections_csv"]),
+        "ime.read": size(prods["cmf"]),
+        "ime.write": size(prods["ime_csv"]),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["cmf.read", "cmf.h2d", "cmf.write", "fcn.read", "fcn.model",
+                                  "fcn.forward", "fcn.write", "salience.read",
+                                  "salience.write", "ime.read", "ime.write"])
+def test_file_spans_count_their_bytes(flightline, run_spans, name):
+    prods, _ = run_spans
+    (s,) = _by_name(prods)[name]
+    want = (os.path.getsize(flightline[3]) if name == "fcn.model"
+            else _file_bytes(prods, name))
+    assert s.counts == {"bytes": want}
+
+
+def test_chunk_spans_count_their_copies_back(run_spans):
+    """One column chunk (32 columns, col_chunk 32) copies back the f32 map
+    and mask, and per column the int64 alpha index, the f32 condition and
+    the int32 valid count."""
+    prods, _ = run_spans
+    (chunk,) = _by_name(prods)["cmf.chunk"]
+    lines, cols = 96, 32
+    assert chunk.counts == {"bytes": lines * cols * (4 + 4) + cols * (8 + 4 + 4)}
+    assert "bytes" not in _by_name(prods)["cmf.stats"][0].counts
+
+
 # ---- the emission stage: --winds, the IME merge, quicklooks, --watch ----
 WIND_KW = dict(wind_ext=".npz", quicklooks=True)
 # exact: ids, names, coordinates, thresholds and the wind statistics (they
