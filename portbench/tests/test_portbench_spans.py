@@ -30,15 +30,15 @@ def _flightline(t0, model_ms, ids):
     extra = model_ms - 400
     cmf, fcn, ime = next(ids), next(ids), next(ids)
     add("cmf.read", 0, 500, cmf, bytes=10 ** 9)
-    add("cmf.h2d", 500, 600, cmf, bytes=10 ** 9)
-    add("cmf.chunk", 600, 1100, cmf, bytes=10 ** 6)
+    add("cmf.h2d", 500, 600, cmf)
+    add("cmf.chunk", 600, 1100, cmf)
     add("cmf.stats", 1100, 1150, cmf)
-    add("cmf.chunk", 1150, 1650, cmf, bytes=10 ** 6)
+    add("cmf.chunk", 1150, 1650, cmf)
     add("cmf.stats", 1650, 1700, cmf)
     add("cmf.write", 2700, 3000, cmf, bytes=5 * 10 ** 8)
     add("fcn.read", 4000, 4100, fcn, bytes=10 ** 8)
-    add("fcn.model", 4100, 4500 + extra, fcn, bytes=10 ** 7)
-    add("fcn.forward", 4500 + extra, 9500 + extra, fcn, bytes=10 ** 7)
+    add("fcn.model", 4100, 4500 + extra, fcn)
+    add("fcn.forward", 4500 + extra, 9500 + extra, fcn)
     add("fcn.write", 9500 + extra, 9600 + extra, fcn, bytes=10 ** 8)
     add("ime.read", 10000 + extra, 10200 + extra, ime, bytes=2 * 10 ** 8)
     add("ime.merge", 10200 + extra, 10900 + extra, ime)
@@ -129,3 +129,19 @@ def test_a_traced_flightline_run_reports_the_span_metrics(tiny_tree):
     assert m["file_io_gbps"]["unit"] == "GB/s" and m["file_io_gbps"]["value"] > 0
     assert 0 < m["fcn_model_s"]["value"] and 0 < m["file_io_s"]["value"]
     assert 0 < m["host_bound_s"]["value"] <= r["device"]["window_s"] / r["attempted"]
+
+
+@pytest.mark.parametrize("intervals, covered", [
+    ([], 0),                                    # nothing covers it
+    ([(10, 30), (50, 60)], 30),                 # disjoint
+    ([(10, 40), (30, 60)], 50),                 # overlapping: their union
+    ([(20, 30), (10, 50)], 40),                 # one inside the other
+    ([(-20, 10), (90, 150)], 20),               # clipped to [lo, hi]
+    ([(0, 100)], 100),                          # wholly covered
+])
+def test_covered_ns_is_the_clipped_union(intervals, covered):
+    """``host_bound_s``'s arithmetic: a span less the union of the device
+    spans inside it."""
+    from portbench.program_spans import covered_ns
+    lo = 1000
+    assert covered_ns([(lo + a, lo + b) for a, b in intervals], lo, lo + 100) == covered

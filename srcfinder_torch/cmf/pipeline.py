@@ -60,13 +60,6 @@ _BAND_NAMES_4 = ["Red Radiance (uW/nm/sr/cm2)",
                  "CH4 Absorption (ppm x m)"]
 
 
-def _fetch(span_, t):
-    """``t`` copied to the host as numpy, its bytes counted on ``span_``."""
-    a = t.cpu().numpy()
-    span_.count(bytes=a.nbytes)
-    return a
-
-
 def _f64_columns(xblk, cols, abscf, alphas, model, reflectance):
     """Recompute the columns ``cols`` of a device chunk in float64 on the
     same device (the reference's native precision). Columns are
@@ -130,7 +123,7 @@ def robust_mf_image(infile: str, library: str, outfile: str,
     the device), per column chunk "cmf.chunk" (its device work through its
     copies back) and "cmf.stats" (its product slab and column stats on the
     host), and "cmf.write" (the product's flush and the stats CSV), each
-    copy and file span counting its ``bytes``.
+    file span counting its ``bytes``.
     """
     dev = resolve_device(device)
     dt = _TORCH_DTYPE[np.dtype(dtype)]
@@ -208,7 +201,7 @@ def robust_mf_image(infile: str, library: str, outfile: str,
                 s.count(bytes=win.nbytes)
                 pre_rgb = np.stack([win[:, :, sel.index(int(b))]
                                     for b in rgb_bands], axis=-1)
-    with span("cmf.h2d", bytes=raw.nbytes):
+    with span("cmf.h2d"):
         x_all = torch.from_numpy(raw).to(dev)
     if preloaded is None:
         x_all = x_all.permute(0, 2, 1)                             # (L, C, AB) view
@@ -221,7 +214,7 @@ def robust_mf_image(infile: str, library: str, outfile: str,
         c0 = bi * col_chunk
         c1 = min(ncols, c0 + col_chunk)
         width = c1 - c0
-        with span("cmf.chunk") as s:
+        with span("cmf.chunk"):
             xj = x_all[:, c0:c1, :].to(dt).contiguous()
             if width < col_chunk:  # fixed chunk shape; padded columns are dropped
                 xj = torch.cat([xj, xj.new_zeros((nrows, col_chunk - width,
@@ -232,14 +225,14 @@ def robust_mf_image(infile: str, library: str, outfile: str,
                     xj, mj, abscf_t, alphas_t, bgmodes=bgmodes, pcadim=pcadim,
                     reject=reject, regfull=regfull, model=model,
                     reflectance=reflectance)
-                mf = _fetch(s, res.mf) * ppm
-                valid = _fetch(s, res.valid)
-                labels = _fetch(s, res.labels)
-                alpha_pix = _fetch(s, res.alpha_pix)
+                mf = res.mf.cpu().numpy() * ppm
+                valid = res.valid.cpu().numpy()
+                labels = res.labels.cpu().numpy()
+                alpha_pix = res.alpha_pix.cpu().numpy()
                 if cond_thresh and dt == torch.float32:
-                    cond = _fetch(s, res.cond[:width])           # (w, K)
-                    cnts = _fetch(s, res.counts[:width])
-                    rejm = _fetch(s, res.rejected[:width])
+                    cond = res.cond[:width].cpu().numpy()           # (w, K)
+                    cnts = res.counts[:width].cpu().numpy()
+                    rejm = res.rejected[:width].cpu().numpy()
                     # ~(cond >= thresh): a NaN cond must also be recomputed
                     flagged = ~(cond >= cond_thresh) & (cnts >= 2) & ~rejm
                     bad = np.nonzero(flagged.any(axis=1))[0]
@@ -263,12 +256,12 @@ def robust_mf_image(infile: str, library: str, outfile: str,
                 res = mfmod.matched_filter_columns(xj, mj, abscf_t, alphas_t,
                                                    model=model,
                                                    reflectance=reflectance)
-                mf = _fetch(s, res.mf) * ppm
-                valid = _fetch(s, mj) > 0
-                alpha_index = _fetch(s, res.alpha_index).copy()
+                mf = res.mf.cpu().numpy() * ppm
+                valid = mj.cpu().numpy() > 0
+                alpha_index = res.alpha_index.cpu().numpy().copy()
                 if cond_thresh and dt == torch.float32:
-                    cond = _fetch(s, res.cond[:width])
-                    nvalid = _fetch(s, res.n[:width])
+                    cond = res.cond[:width].cpu().numpy()
+                    nvalid = res.n[:width].cpu().numpy()
                     # ~(cond >= thresh), NOT (cond < thresh): a NaN cond (f32
                     # eigh on a rank-deficient covariance) must also be
                     # recomputed

@@ -95,7 +95,7 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
     "cmf.stats" per column chunk, "cmf.write", "fcn.read", "fcn.model",
     "fcn.forward", "fcn.write", "salience.read", "salience.detect",
     "salience.write", "ime.read", "ime.label", "ime.merge", "ime.write"),
-    the file and copy spans counting their ``bytes``.
+    the "*.read" and "*.write" spans counting their ``bytes``.
 
     ``dtype``: the CMF's precision; ``fcn_dtype``: the FCN trunk's
     ("float32" or "bfloat16"). ``bgmodes``: the CMF's background modes
@@ -190,13 +190,12 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
                     # a BIP product is read whole for its last band
                     band = np.asarray(img.read_band(-1), dtype=np.float32)
                     s.count(bytes=os.path.getsize(cmff))
-                with span("fcn.model", bytes=os.path.getsize(weights)):
+                with span("fcn.model"):
                     model = load_saliency_model(weights, dtype=getattr(torch, fcn_dtype),
                                                 device=dev)
-                with span("fcn.forward") as s:
+                with span("fcn.forward"):
                     sal = fcn_saliency_image(band, model, model_name=model_name,
                                              method=method, device=dev).cpu().numpy()
-                    s.count(bytes=sal.nbytes)
                 with span("fcn.write", bytes=sal.nbytes):
                     meta = {"data ignore value": -9999}
                     if "map info" in img.metadata:

@@ -28,7 +28,7 @@ from collections import deque
 
 import torch
 
-__all__ = ["LOG_SIZE", "Span", "Stage", "span", "spans", "self_seconds"]
+__all__ = ["LOG_SIZE", "Span", "Stage", "span", "spans"]
 
 #: Finished spans kept in the log, the oldest dropped first (a flightline
 #: through ``run_flightline`` records about 30).
@@ -141,16 +141,3 @@ def spans(trace_id: int | None = None) -> list:
     log = list(_log)
     return log if trace_id is None else [s for s in log if s.trace_id == trace_id]
 
-
-def self_seconds(parent: Span, log) -> float:
-    """``parent``'s seconds less the union of its children's (those of
-    ``log`` whose parent it is), clipped to it."""
-    cuts = sorted((max(s.start_ns, parent.start_ns), min(s.end_ns, parent.end_ns))
-                  for s in log if s.parent_id == parent.span_id)
-    covered, reach = 0, parent.start_ns
-    for a, b in cuts:
-        a = max(a, reach)
-        if b > a:
-            covered += b - a
-            reach = b
-    return (parent.end_ns - parent.start_ns - covered) / 1e9

@@ -1,5 +1,5 @@
 """srcfinder_torch.trace, the port's span recorder, on the CPU: the tree
-(parents, one trace per root, a context per thread), self time, counts,
+(parents, one trace per root, a context per thread), counts,
 the bounded log, stages, no ``record_function`` while the profiler is off,
 and the profiler's clock shared with the spans' stamps."""
 
@@ -42,14 +42,6 @@ def _tree():
         with trace.span("b") as b:
             pass
     return dict(root=root, a=a, a1=a1, a2=a2, b=b)
-
-
-def _hand(span_id, start, end, parent=None, name="s"):
-    """A finished span made by hand (stamps in ns)."""
-    s = trace.Span(name)
-    s.span_id, s.parent_id, s.trace_id = span_id, parent, 1
-    s.start_ns, s.end_ns = start, end
-    return s
 
 
 @pytest.mark.parametrize("case", ["parents", "one_trace_per_root", "order_in_log",
@@ -96,30 +88,6 @@ def test_span_tree(case):
         with trace.span("after") as after:
             pass
         assert after.parent_id is None and trace.spans()[-3:] == [bad, outer, after]
-
-
-@pytest.mark.parametrize("children, self_ns", [
-    ([], 100),                                  # no child: all its own
-    ([(10, 30), (50, 60)], 70),                 # disjoint children
-    ([(10, 40), (30, 60)], 50),                 # overlapping children: their union
-    ([(20, 30), (10, 50)], 60),                 # one inside the other
-    ([(-20, 10), (90, 150)], 80),               # clipped to the parent
-    ([(0, 100)], 0),                            # wholly covered
-])
-def test_self_seconds_is_duration_less_the_childrens_union(children, self_ns):
-    parent = _hand(1, 1000, 1100)
-    log = [parent, _hand(9, 1000, 1100, parent=None)]      # not a child: ignored
-    log += [_hand(10 + i, 1000 + a, 1000 + b, parent=1) for i, (a, b) in enumerate(children)]
-    assert trace.self_seconds(parent, log) == pytest.approx(self_ns / 1e9, abs=1e-15)
-
-
-def test_self_seconds_of_recorded_spans():
-    t = _tree()
-    log = trace.spans(t["root"].trace_id)
-    a = t["a"]
-    want = a.seconds - t["a1"].seconds - t["a2"].seconds
-    assert trace.self_seconds(a, log) == pytest.approx(want, abs=1e-9)
-    assert trace.self_seconds(t["a1"], log) == t["a1"].seconds
 
 
 @pytest.mark.parametrize("at_entry, later, want", [
