@@ -12,7 +12,8 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    HGMMA, DMMA) in the SASS of each kernel of the built libraries
    (cuobjdump); the trunk library must have some, P2's bf16 front kernel
    (front_kernel<bf16>) HGMMA, both f32 instances of the 3xTF32 conv
-   (conv_tf32x3_kernel<float, 64 and 128>) HGMMA, and the f64 LOOCV
+   (conv_tf32x3_kernel<float, 64 and 128>) HGMMA, every width of the bf16
+   conv (conv_wgmma_kernel<bf16, 32 .. 256>) HGMMA, and the f64 LOOCV
    kernel (loo_kernel<double>) DMMA.
 2. The convolutions one by one: every distinct conv trunk_s23 and
    trunk_s45 launch (srcfinder_torch.ops.trunk_fuse.conv_plan) in bf16 at
@@ -24,9 +25,11 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    bit-identical, with channels outside the written ones left as they
    were; f32 rows also give the kernel's and cuDNN-f32's errors against an
    f64 conv on their first F64_WINDOWS windows. Prints ms, achieved
-   TFLOP/s, the bound (f32 as 3xTF32, beside the FMA pipes' bound) and the
-   tile the dispatch picked for each (it must be the tensor-core kernel's,
-   as tensor_core_ok says, at the width that pads cout less). Then
+   TFLOP/s, the bound (f32 as 3xTF32, beside the FMA pipes' bound), the
+   share of it, and the tile width the dispatch picked for each (it must
+   be the tensor-core kernel's, as tensor_core_ok says, at the width
+   trunk_fuse.conv_tile_width gives: bf16 one column tile wherever cout
+   <= 256; each bf16 launch counted by trunk_fuse.conv_launches). Then
    trunk_s45 on 3 windows, whose last blocks end in a ragged row tile, and
    P2's layers one by one (front kernel, conv3, pool2: device ms of each
    in a profiled call at 512 windows in f32 and bf16 and at 4096 in bf16,
@@ -369,8 +372,27 @@ F64_WINDOWS = 16
 # the trunk kernels each route launches
 ROUTE_KERNELS = {"segments": ("trunk_s23", "trunk_s45"),
                  "stage12": ("fused_stage12", "trunk_s3", "trunk_s45"), "plain": ()}
+# each trunk entry point's input side, as the routes call them on WIN windows
+TRUNK_SIDES = {"fused_stage12": WIN, "trunk_s23": WIN // 2, "trunk_s3": WIN // 8,
+               "trunk_s45": WIN // 16}
 # P2's side of each 3-window check: 40 leaves ragged 8 x 8 front tiles
 STAGE12_SMALL = (40, 64, 256)
+
+
+def plan_conv_launches(counts):
+    """{tile width: bf16 conv launches} that the trunk entry-point calls
+    ``counts`` ({entry point: calls}) make on WIN windows: each call
+    launches every conv of its conv_plan once, at the width
+    trunk_fuse.conv_tile_width gives."""
+    from srcfinder_torch.ops import trunk_fuse as tf
+    want = {}
+    for k, n in counts.items():
+        if not n:
+            continue
+        for c in tf.conv_plan(k, TRUNK_SIDES[k]):
+            w = tf.conv_tile_width(c.cout)
+            want[w] = want.get(w, 0) + n
+    return want
 
 
 def kernel_run(kernel, default):
@@ -840,9 +862,11 @@ def phase_conv_shapes():
     the single-conv entry as the segment launches it (channel offsets,
     pixel strides, split) on NaN-filled outputs, against the plain conv in
     its dtype: relative error, ms, achieved TFLOP/s and the tile the
-    dispatch picked (trunk_fuse.conv_tile), and the bound (trunk_bound).
-    Each must go to the tensor-core kernel of its dtype as
-    trunk_fuse.tensor_core_ok says, at the tile width that pads cout less,
+    dispatch picked (trunk_fuse.conv_tile) with its column tiles, and the
+    bound (trunk_bound) with the share of it. Each must go to the
+    tensor-core kernel of its dtype as trunk_fuse.tensor_core_ok says, at
+    the tile width trunk_fuse.conv_tile_width gives, each bf16 launch
+    counted under that width by trunk_fuse.conv_launches (no f32 one),
     stay within TRUNK_TOL, give the same bits on a second launch and leave
     every channel it does not own NaN. f32 rows also hold the kernel's and
     cuDNN-f32's (the plain conv's) errors against the conv in f64 on their
@@ -921,11 +945,13 @@ def _conv_shape_row(tf, gen, tag, c, n, dtype):
     if not tf.tensor_core_ok(c, dtype):
         fail(f"{tag}: outside the tensor-core kernel's dispatch rule")
     tile = tf.conv_tile(x, k, b, y0, y1, c.stride, c.pad)
-    # the rule's tile width: the one that pads cout less, 128 on a tie
-    want_tile = 128 if c.cout % 128 == 0 or c.cout % 128 > 64 else 64
+    # the rule's tile width (trunk_fuse.conv_tile_width): f32 the one of 64
+    # and 128 that pads cout less, bf16 the fewest tiles of <= 256 channels
+    want_tile = tf.conv_tile_width(c.cout, dtype)
     if tile != want_tile:
         fail(f"{tag}: the dispatch picked tile {tile}, not the tensor-core kernel's "
              f"{want_tile}")
+    before = tf.conv_launches()
     run()
     torch.cuda.synchronize()
     got = y0 if y1 is None else torch.cat([y0, y1], dim=3)
@@ -933,7 +959,12 @@ def _conv_shape_row(tf, gen, tag, c, n, dtype):
     again = y0 if y1 is None else torch.cat([y0, y1], dim=3)
     same = torch.equal(got, again)
     del again
-    row = dict(conv=tag, windows=n, side=c.side, cin=c.cin, cout=c.cout, k=c.k, tile=tile)
+    counted = tf.conv_launches().get(tile, 0) - before.get(tile, 0)
+    if counted != (0 if f32 else 2):
+        fail(f"{tag}: conv_launches counted {counted} launches at width {tile} for two "
+             f"{'f32' if f32 else 'bf16'} convs")
+    row = dict(conv=tag, windows=n, side=c.side, cin=c.cin, cout=c.cout, k=c.k, tile=tile,
+               column_tiles=-(-c.cout // tile))
     with torch.no_grad():
         xt = x.permute(0, 3, 1, 2)
         ref = tf._conv_ref(xt, k, b, c.stride, c.pad).permute(0, 2, 3, 1)
@@ -2943,7 +2974,10 @@ def phase_exact_cnn(workdir, strip, wf):
     path), the other kernel route and the plain route in its
     configuration, each trunk route in f32, the segments route at the
     CLI's batch in f32, the fast method. Each run zeroes the trunk kernels'
-    launch counters just before and reads them just after. Returns
+    launch counters just before and reads them just after; a bf16 kernel
+    route must have launched every conv of its segments' plans on
+    conv_wgmma_kernel at the rule's tile widths (trunk_fuse.conv_launches),
+    and both kernel routes' bf16 profiles must name that kernel. Returns
     {kernel: (run, launches)} from the run of each kernel's path
     (kernel_run)."""
     import inspect
@@ -3000,14 +3034,21 @@ def phase_exact_cnn(workdir, strip, wf):
         torch.cuda.synchronize()
         s = time.time() - t0
         counts = {k: trunk_fuse.launches(k) for k in TRUNK_KERNELS}
+        convs = trunk_fuse.conv_launches()
         stats[tag] = dict(s=s, windows_per_s=n_win / s,
                           peak_mem_bytes=torch.cuda.max_memory_allocated(),
                           projected_full_scene_s=s * SCENE[0] / STRIP_LINES,
-                          launches=counts, route=trunk)
+                          launches=counts, conv_launches=convs, route=trunk)
         launched = sorted(k for k, c in counts.items() if c > 0)
         if launched != sorted(ROUTE_KERNELS[trunk]):
             fail(f"{tag}: launched {launched}, trunk {trunk} launches "
                  f"{sorted(ROUTE_KERNELS[trunk])}")
+        # every bf16 conv of the route's segments on conv_wgmma_kernel, at
+        # the rule's widths; no f32 conv counted there
+        want = plan_conv_launches(counts) if "bf16" in tag else {}
+        if convs != want:
+            fail(f"{tag}: bf16 conv launches by tile width {convs}, its segments' plans "
+                 f"launch {want}")
         return res
 
     rc = run(cli_tag, lambda: cnn_cli.main([strip, "-n", "1", "-w", wf, "-o", out]), default)
@@ -3056,8 +3097,10 @@ def phase_exact_cnn(workdir, strip, wf):
                       std=float(plain[valid].std())),
         bf16_device_busy_ms=busy, profile=profiles)}))
     seg, s12 = profiles[f"bf16_segments_b{CLI_BATCH}"], profiles[f"bf16_stage12_b{CLI_BATCH}"]
-    if not seg["families_ms"].get("conv_wgmma_kernel"):
-        fail(f"the segments route's bf16 profile names no tensor-core conv kernel: {seg['top']}")
+    for route, prof in (("segments", seg), ("stage12", s12)):
+        if not prof["families_ms"].get("conv_wgmma_kernel"):
+            fail(f"the {route} route's bf16 profile names no tensor-core conv kernel "
+                 f"(conv_wgmma_kernel): {prof['top']}")
     if not s12["families_ms"].get("front_kernel") or s12["families_ms"].get("cudnn_conv"):
         fail(f"the stage12 route's bf16 profile must name the front kernel and no cuDNN "
              f"convolution: {s12['families_ms']}")
@@ -4536,6 +4579,9 @@ def main():
     for tbn in (64, 128):
         if not sass["trunk"].get(f"conv_tf32x3_kernel<float, {tbn}>", {}).get("HGMMA"):
             fail(f"no HGMMA instruction in the f32 conv (conv_tf32x3_kernel<float, {tbn}>)")
+    for w in trunk_fuse.BF16_TILE_WIDTHS:
+        if not sass["trunk"].get(f"conv_wgmma_kernel<bf16, {w}>", {}).get("HGMMA"):
+            fail(f"no HGMMA instruction in the bf16 conv (conv_wgmma_kernel<bf16, {w}>)")
     if not sass["loo"].get("loo_kernel<double>", {}).get("DMMA"):
         fail("no DMMA instruction in the f64 LOOCV kernel (loo_kernel<double>)")
 

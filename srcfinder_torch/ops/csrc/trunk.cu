@@ -64,19 +64,38 @@
 // - conv_wgmma_kernel (bf16): an implicit GEMM on the tensor cores. Rows
 //   are output pixels (the batch folded in), columns output channels, the
 //   reduction runs over (ky, kx, cin) with cin fastest, from NHWC maps and
-//   HWIO weights (a (K*K*Cin) x Cout row-major matrix). A block of two
-//   warpgroups computes a 128 x BN tile (BN 64 or 128, whichever pads Cout
-//   less), each warpgroup 64 rows with wgmma m64nBNk16 (bf16 in, f32
-//   accumulate) reading both operands from shared memory: A K-major, B
-//   N-major (the HWIO rows as they are, through wgmma's transpose of B),
-//   both in the 128-byte swizzle. Every channel count, pixel stride and
-//   channel offset of trunk_s23/trunk_s45 is a multiple of 8, so a 16-byte
-//   vector of 8 bf16 never crosses a (ky, kx) tap: 64-deep slices of A
-//   (im2col rows) and B are staged with 16-byte cp.async, zero-filled
-//   (src-size 0) for the conv's padding and the ragged edges, into a ring
-//   of 4 stages filled 2 slices ahead, while one wgmma group stays in
-//   flight. The epilogue goes through shared memory so that the output
-//   leaves in 16-byte chunks.
+//   HWIO weights (a (K*K*Cin) x Cout row-major matrix). Every channel
+//   count, pixel stride and channel offset of the segments is a multiple
+//   of 8, so a 16-byte vector of 8 bf16 never crosses a (ky, kx) tap. A
+//   tile is 128 pixels x BN channels, BN from Cout: the fewest column tiles
+//   of at most 256, each its share of Cout rounded up to 32, so wherever
+//   Cout <= 256 one tile reads each im2col row once (conv3, 3b.branch2 and
+//   3a.wide: one tile of 192, where 64-wide tiles staged A three times).
+//   A narrow tile was bound by shared memory: at BN 64 its wgmma read 2 KB
+//   of A and 2 KB of B for every 1 MFLOP of a k16 step, about 60% of the
+//   tensor cores' rate at 128 B a clock; at BN 192, about 95%.
+//   Warp-specialised and persistent: one block an SM (384 threads, up to
+//   ~215 KB of shared memory) walks the output tiles m-major, the column
+//   tiles of one m tile on neighbouring blocks, so their A stays in L2.
+//   Warpgroup 0, its registers lowered by setmaxnreg, fills a ring of
+//   3-8 stages of 64-deep slices, each guarded by a full and an empty
+//   mbarrier: B in boxes of 64 channels by TMA (128-byte swizzle, N-major,
+//   as wgmma reads it through its transpose of B; at BN = 32 mod 64 wgmma
+//   reads half of the last box), A by TMA where it is a plain 2-D box (a
+//   1x1 conv: 128 pixel rows at pixel stride ldx, 128-byte swizzle,
+//   K-major), else by 16-byte cp.async of the producer's 128 threads,
+//   zero-filled (src-size 0) for the padding and the ragged edges and
+//   signalled with cp.async.mbarrier.arrive; TMA fills past the map or the
+//   weights with 0. Warpgroups 1 and 2 (registers raised) each run wgmma
+//   m64nBNk16 on 64 rows of a slice as soon as its full barrier completes,
+//   keep the next slice's group issued behind it, and release a stage once
+//   its wgmma has retired: no block-wide barrier in the loop. Each ends a
+//   tile with bias, ReLU and the rounding into its own tile in shared
+//   memory, then 16-byte stores a row's chunks on neighbouring threads
+//   (4-byte stores straight from the accumulators, a quad's 16 B of a row
+//   each, took longer than the tile's wgmma), while the producer runs
+//   ahead into the next tile. No split-K, no atomics: repeats are
+//   bit-identical.
 // - conv_tf32x3_kernel (f32): the same GEMM view, block tile and epilogue
 //   on wgmma m64nBNk8 with tf32 operands, as 3xTF32. tf32 wgmma takes no
 //   transpose: both operands must be K-major in shared memory, and the HWIO
@@ -102,15 +121,18 @@
 //   byte count about 1.4x the tensor cores' time a slice at BN 128. 225 KB
 //   a block at BN 128 (169 KB at 64), one block an SM. No atomics: repeats
 //   are bit-identical.
-// - Dispatch (launch(), tc_tile()): a conv goes to the tensor-core kernel of
-//   its dtype when Cin, Cout, the channel split and the input and output
-//   pixel strides are multiples of the 16-byte vector (8 bf16, 4 f32) and
-//   the input, weight and output pointers 16-byte aligned, so a vector
-//   never crosses a (ky, kx) tap; every conv of trunk_s23/trunk_s3/trunk_s45
-//   and P2's conv3 meets it in both dtypes (every channel count, offset and
-//   stride is a multiple of 8); P2's conv1 and conv2 run inside front_kernel.
-//   No kernel takes a conv the rule refuses: launch() returns an error for
-//   it, and the wrapper raises.
+// - Dispatch (launch(), tc_ok(), tc_tile()): a conv goes to the tensor-core
+//   kernel of its dtype when Cin, Cout, the channel split and the input and
+//   output pixel strides are multiples of the 16-byte vector (8 bf16, 4
+//   f32) and the input, weight and output pointers 16-byte aligned, so a
+//   vector never crosses a (ky, kx) tap; every conv of
+//   trunk_s23/trunk_s3/trunk_s45 and P2's conv3 meets it in both dtypes
+//   (every channel count, offset and stride is a multiple of 8); P2's conv1
+//   and conv2 run inside front_kernel. The tile width: bf16 as above, f32
+//   the one of 64 and 128 that pads Cout less (128 on a tie). No kernel
+//   takes a conv the rule refuses: launch() returns an error for it, and
+//   the wrapper raises. The library counts the bf16 conv launches by tile
+//   width (srcf_conv_bf16_launches).
 // - Epilogue of both: bias added and ReLU in f32, then one rounding to the
 //   storage type, where the Pallas kernels rounded. The output goes to a
 //   channel offset and pixel stride of the concatenated inception output
@@ -125,20 +147,22 @@
 //   (-inf padding): ceil-mode 3x3/2, 2x2/2 and branch 4's 3x3/1 pad 1. A
 //   thread reads and writes 16 bytes: 8 bf16 or 4 f32 channels.
 // - gap_kernel: mean over pixels in f32, then rounded to the storage type.
-// Not yet: TMA for the weights and the 1x1 convs' A tiles (plain 2-D boxes
-// of an NHWC map) with a producer warp and mbarriers in place of the
-// cp.async ring every thread feeds; persistent blocks that overlap one
-// tile's epilogue with the next tile's loads; weights split into hi and lo
-// once, K-major, for the f32 kernel (each block splits them again); conv3
-// and pool2 inside P2's front kernel (conv3's 64 -> 192 channels over a 10
-// x 10 halo of the pooled tile would need 4x the pooled tile's shared
-// memory).
+// Not yet: the f32 kernel's feed (the same producer, TMA and persistent
+// tiles; weights split into hi and lo once, K-major, where each block
+// splits them again); B shared by a cluster of two blocks through TMA
+// multicast (it halves the weights' L2 reads, but a first try ran at half
+// speed); two blocks an SM for the narrow tiles; conv3 and pool2 inside
+// P2's front kernel (conv3's 64 -> 192 channels over a 10 x 10 halo of the
+// pooled tile would need 4x the pooled tile's shared memory); branch 4's
+// pool inside its 1x1.
 
+#include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -192,21 +216,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-constexpr int WG_BM = 128;      // output pixels per block: 64 per warpgroup
-constexpr int WG_BK = 64;       // reduction slice: one 128-byte swizzle row
-constexpr int WG_STAGES = 4;    // cp.async ring depth
-constexpr int WG_THREADS = 256; // two warpgroups
-
-template <int TBN>
-struct Wg {
-  static constexpr int A_BYTES = WG_BM * WG_BK * 2;
-  static constexpr int B_BYTES = WG_BK * TBN * 2;
-  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-  static constexpr int SMEM = WG_STAGES * STAGE_BYTES + 1024;  // + aligning the ring
-  static constexpr int A_ROWS = WG_BM * 8 / WG_THREADS;          // rows a thread stages
-  static constexpr int B_CHUNKS = WG_BK * TBN / 8 / WG_THREADS;  // B chunks a thread stages
-};
-
 // 128-byte swizzle, the layout wgmma reads: 16-byte chunk c of the
 // 128-byte row r at c ^ (r & 7), in 1024-byte atoms of 8 rows
 __device__ __forceinline__ uint32_t sw128(int r, int c) {
@@ -253,13 +262,6 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b
                : WG_OUT32 : "l"(a), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-               ", %64, %65, p, 1, 1, 0, 1;\n}\n"
-               : WG_OUT64 : "l"(a), "l"(b), "r"(1));
-}
-
 // d (64 x N, f32) = A (64 x 8, K-major) * B (8 x N, K-major) + (acc ? d : 0),
 // tf32, one warpgroup: A and B not negated (tf32 takes no transpose)
 __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
@@ -282,148 +284,333 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-template <int TBN>
-__global__ void __launch_bounds__(WG_THREADS) conv_wgmma_kernel(const Conv<bf16> a) {
-  using S = Wg<TBN>;
+// ---- warp-specialised bf16 conv: mbarrier ring, TMA, persistent tiles ------
+
+// mbarrier of the ring: init with the arrivals a phase takes; a wait spins
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile("{\n.reg .pred p;\nWAIT:\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+               "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transfers in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// one arrival once every cp.async this thread has issued has landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// TMA: the box of a 2-D tensor map at (c0 innermost, c1) into shared
+// memory, its bytes counted on `bar`; elements outside the tensor read 0
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// barrier `id` (1, 2: one a consumer warpgroup) over its 128 threads
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// wgmma's accumulator operands at n = 32 .. 256: n / 2 f32 registers a thread
+#define CW_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define CW_R32 \
+  CW_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define CW_R48 \
+  CW_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+#define CW_R64 \
+  CW_R48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define CW_R80 \
+  CW_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+#define CW_R96 \
+  CW_R80 ", %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define CW_R112                                                                           \
+  CW_R96 ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, " \
+         "%110, %111"
+#define CW_R128                                                                            \
+  CW_R112 ", %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, " \
+          "%125, %126, %127"
+#define CW_O16 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
+    "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define CW_O32 CW_O16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+    "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+    "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define CW_O48 CW_O32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+    "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), \
+    "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+#define CW_O64 CW_O48, "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), \
+    "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), \
+    "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define CW_O80 CW_O64, "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), \
+    "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), \
+    "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+#define CW_O96 CW_O80, "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), \
+    "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), \
+    "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+#define CW_O112 CW_O96, "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), \
+    "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), \
+    "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+#define CW_O128 CW_O112, "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+    "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), \
+    "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+// d (64 x n, f32) = A (64 x 16, K-major, 128-byte swizzle) * B (16 x n,
+// N-major, 128-byte swizzle) + (acc ? d : 0), bf16, one warpgroup; the
+// overload is chosen by the accumulator's length n / 2
+#define CW_WGMMA(N, ACC, OUT, A, B, P)                                                     \
+  __device__ __forceinline__ void wgmma_bf16(float(&d)[N / 2], uint64_t a, uint64_t b,     \
+                                             int acc) {                                    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" ACC "}, %" #A \
+                 ", %" #B ", p, 1, 1, 0, 1;\n}\n"                                          \
+                 : OUT                                                                     \
+                 : "l"(a), "l"(b), "r"(acc));                                              \
+  }
+CW_WGMMA(32, CW_R16, CW_O16, 16, 17, 18)
+CW_WGMMA(64, CW_R32, CW_O32, 32, 33, 34)
+CW_WGMMA(96, CW_R48, CW_O48, 48, 49, 50)
+CW_WGMMA(128, CW_R64, CW_O64, 64, 65, 66)
+CW_WGMMA(160, CW_R80, CW_O80, 80, 81, 82)
+CW_WGMMA(192, CW_R96, CW_O96, 96, 97, 98)
+CW_WGMMA(224, CW_R112, CW_O112, 112, 113, 114)
+CW_WGMMA(256, CW_R128, CW_O128, 128, 129, 130)
+
+constexpr int CW_BM = 128;              // output pixels a tile: 64 per consumer warpgroup
+constexpr int CW_BK = 64;               // reduction slice: one 128-byte swizzle row of A
+constexpr int CW_BOX = 64;              // channels of a B box: one 128-byte swizzle row
+constexpr int CW_GRANULE = 32;          // tile widths: multiples of 32 channels
+constexpr int CW_PRODUCER = 128;        // warpgroup 0 fills the ring
+constexpr int CW_THREADS = 3 * 128;     // then two consumer warpgroups
+constexpr int CW_PRODUCER_REGS = 56;    // setmaxnreg: 128 x 56 + 256 x 224 <= 64 K
+constexpr int CW_CONSUMER_REGS = 224;
+
+template <int BN>
+struct Cw {
+  static constexpr int A_BYTES = CW_BM * CW_BK * 2;    // 128 rows of 128 B
+  static constexpr int BOX_BYTES = CW_BK * CW_BOX * 2; // 64 rows of 128 B
+  static constexpr int B_BYTES = (BN + CW_BOX - 1) / CW_BOX * BOX_BYTES;
+  static constexpr int STAGE = A_BYTES + B_BYTES;      // a multiple of 8 KB
+  // a consumer's epilogue tile: 64 rows of BN bf16, padded by 16 B against
+  // bank conflicts
+  static constexpr int LDT = BN * 2 + 16;
+  static constexpr int TILE = 64 * LDT;
+  static constexpr int FIT = (232448 - 1024 - 2 * TILE - 16 * 8) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  // + aligning; the ring, the two epilogue tiles, the barriers
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * TILE + 16 * STAGES;
+  static_assert(BN % CW_GRANULE == 0 && BN <= 256, "wgmma n: a multiple of 32, <= 256");
+  static_assert(STAGES >= 3 && SMEM <= 232448, "a block may use 227 KB of shared memory");
+};
+
+// A by TMA: a 1x1 conv of stride 1 reads pixel m's channels at x + m ldx,
+// a plain 2-D box of the map; every other conv builds im2col rows by cp.async
+__host__ __device__ inline bool a_by_tma(const Conv<bf16>& a) {
+  return a.K == 1 && a.stride == 1 && a.pad == 0;
+}
+
+// One persistent block an SM walks output tiles of 128 pixels x BN
+// channels, m-major (the column tiles of one m tile adjacent).
+// Warpgroup 0 produces: each 64-deep slice of a tile into the next stage
+// of the ring once both consumers have released it (empty barrier): B's
+// 64-channel boxes by TMA, A by TMA (1x1) or by 16-byte cp.async of its
+// thread's 8 rows, zero-filled for the padding and the ragged edges; the
+// stage's full barrier completes when every byte has landed. Warpgroups 1
+// and 2 consume: each runs wgmma on its 64 rows of a slice once it is
+// full, releases the stage when that wgmma has retired (one group in
+// flight behind the one issued), and ends a tile with bias, ReLU and one
+// rounding to bf16 through its epilogue tile, while the producer runs on
+// into the next tile's slices.
+template <int BN>
+__global__ void __launch_bounds__(CW_THREADS, 1)
+    conv_wgmma_kernel(const Conv<bf16> a, const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b) {
+  using S = Cw<BN>;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t s0 = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms 1024-aligned
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = tid >> 7;
-  const int tiles_n = (a.Cout + TBN - 1) / TBN;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x / tiles_n) * WG_BM;
-  const int n0 = static_cast<int>(blockIdx.x % tiles_n) * TBN;
+  const uint32_t s0 = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms aligned
+  const uint32_t tile0 = s0 + S::STAGES * S::STAGE, full0 = tile0 + 2 * S::TILE;
+  const uint32_t empty0 = full0 + 8 * S::STAGES;
+  const int tid = threadIdx.x;
+  const bool tma_a = a_by_tma(a);
+  const int tiles_n = (a.Cout + BN - 1) / BN;
+  const int64_t tiles = (a.M + CW_BM - 1) / CW_BM * tiles_n;
   const int Kd = a.K * a.K * a.Cin;
-  const int KT = (Kd + WG_BK - 1) / WG_BK;
-
-  // A staging: this thread copies chunk ac (8 channels) of rows
-  // ar0 + i * WG_THREADS / 8 of every slice; all its rows are at the same
-  // tap, so a slice costs one tap offset and a bounds test per row
-  const int ac = tid & 7, ar0 = tid >> 3;
-  int64_t row[S::A_ROWS];  // the row's tap (0, 0), relative to x
-  int iy0[S::A_ROWS], ix0[S::A_ROWS];
-#pragma unroll
-  for (int i = 0; i < S::A_ROWS; ++i) {
-    const int64_t m = m0 + ar0 + i * (WG_THREADS / 8);
-    row[i] = 0;
-    iy0[i] = -(1 << 29);  // rows past M read nothing
-    ix0[i] = 0;
-    if (m < a.M) {
-      const int ox = static_cast<int>(m % a.Wo);
-      const int64_t t = m / a.Wo;
-      const int oy = static_cast<int>(t % a.Ho);
-      iy0[i] = oy * a.stride - a.pad;
-      ix0[i] = ox * a.stride - a.pad;
-      row[i] = ((t / a.Ho) * a.H * a.W + static_cast<int64_t>(iy0[i]) * a.W + ix0[i]) * a.ldx;
+  const int KT = (Kd + CW_BK - 1) / CW_BK;
+  if (tid == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      // full: the TMA arrival (+ one a producer thread's cp.async); empty: a consumer each
+      mbar_init(full0 + 8 * s, tma_a ? 1 : 1 + CW_PRODUCER);
+      mbar_init(empty0 + 8 * s, 2);
     }
-  }
-  int k = ac * 8, ci = k % a.Cin, kx = (k / a.Cin) % a.K, ky = (k / a.Cin) / a.K;
-  // B staging: chunk bc (8 channels) of reduction rows br0 + j * B_ROW_STEP
-  constexpr int B_ROW_STEP = WG_THREADS / (TBN / 8);
-  const int bc = tid % (TBN / 8), br0 = tid / (TBN / 8);
-  const bool bv = n0 + bc * 8 < a.Cout;
-  const bf16* wrow = a.w + static_cast<int64_t>(br0) * a.Cout + n0 + bc * 8;
-
-  // A slice: WG_BM rows of 128 B (K-major); B slice: TBN / 64 atoms of
-  // WG_BK rows of 64 channels (N-major)
-  auto stage = [&](int slot, int kt) {
-    const uint32_t sa = s0 + slot * S::STAGE_BYTES, sb = sa + S::A_BYTES;
-    const bool kv = k < Kd;
-    const int64_t tap = (static_cast<int64_t>(ky) * a.W + kx) * a.ldx + ci;
-#pragma unroll
-    for (int i = 0; i < S::A_ROWS; ++i) {
-      const bool v = kv && static_cast<unsigned>(iy0[i] + ky) < static_cast<unsigned>(a.H) &&
-                     static_cast<unsigned>(ix0[i] + kx) < static_cast<unsigned>(a.W);
-      cp_async16(sa + sw128(ar0 + i * (WG_THREADS / 8), ac), v ? a.x + row[i] + tap : a.x, v);
-    }
-    k += WG_BK;
-    ci += WG_BK;
-    while (ci >= a.Cin) {
-      ci -= a.Cin;
-      if (++kx == a.K) {
-        kx = 0;
-        ++ky;
-      }
-    }
-    const int64_t kb0 = static_cast<int64_t>(kt) * WG_BK;
-#pragma unroll
-    for (int j = 0; j < S::B_CHUNKS; ++j) {
-      const int kk = br0 + j * B_ROW_STEP;
-      const bool v = bv && kb0 + kk < Kd;
-      cp_async16(sb + (bc >> 3) * (WG_BK * 128) + sw128(kk, bc & 7),
-                 v ? wrow + (kb0 + j * B_ROW_STEP) * a.Cout : a.w, v);
-    }
-  };
-
-  float acc[TBN / 2];
-#pragma unroll
-  for (int i = 0; i < TBN / 2; ++i) acc[i] = 0.f;
-
-  // slices are staged WG_STAGES - 2 ahead, so the slot being refilled was
-  // read by the wgmma two slices back, which has completed
-  constexpr int AHEAD = WG_STAGES - 2;
-  for (int s = 0; s < AHEAD; ++s) {
-    if (s < KT) stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<AHEAD - 1>();  // slice kt has landed (this thread's part)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-    __syncthreads();             // every thread's part
-    const uint32_t sa = s0 + (kt % WG_STAGES) * S::STAGE_BYTES, sb = sa + S::A_BYTES;
-    // A: this warpgroup's 64 rows, 8-row atoms 1024 B apart; B: atoms of
-    // 64 channels WG_BK * 128 B apart, 8-row atoms 1024 B apart
-    const uint64_t da = smem_desc(sa + wg * 64 * 128, 16, 1024);
-    const uint64_t db = smem_desc(sb, WG_BK * 128, 1024);
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < WG_BK / 16; ++kk) {
-      // k16 step: 32 B further along A's rows, two 8-row atoms down B
-      if constexpr (TBN == 128)
-        wgmma_n128(acc, da + 2 * kk, db + 128 * kk);
-      else
-        wgmma_n64(acc, da + 2 * kk, db + 128 * kk);
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    // slice kt - 1's wgmma has completed: its slot is free from the next
-    // barrier on; slice kt's runs on while the next slice is staged
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-    fence_acc(acc);
-    if (kt + AHEAD < KT) stage((kt + AHEAD) % WG_STAGES, kt + AHEAD);
-    cp_async_commit();
-  }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  fence_acc(acc);
-  cp_async_wait<0>();
-
-  // epilogue: bias, ReLU and the rounding into a bf16 tile in shared
-  // memory (rows padded by 16 B against bank conflicts), then out in
-  // 16-byte chunks of 8 channels, a row's chunks on neighbouring threads.
-  // Accumulator j of 8 columns holds rows (lane >> 2) + 8 hf of the warp's
-  // 16, columns 2 (lane & 3) + {0, 1}.
-  constexpr int LDT = TBN * 2 + 16;  // tile row in bytes
-  __syncthreads();                   // every warp is done with the ring
-  unsigned char* tile = smem_raw + (s0 - smem_u32(smem_raw));
-#pragma unroll
-  for (int j = 0; j < TBN / 8; ++j) {
-    const int c = j * 8 + (lane & 3) * 2, n = n0 + c;
-    const float b0 = n < a.Cout ? __bfloat162float(a.b[n]) : 0.f;
-    const float b1 = n < a.Cout ? __bfloat162float(a.b[n + 1]) : 0.f;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2) + hf * 8;
-      *reinterpret_cast<__nv_bfloat162*>(tile + r * LDT + c * 2) =
-          __floats2bfloat162_rn(fmaxf(acc[4 * j + 2 * hf] + b0, 0.f),
-                                fmaxf(acc[4 * j + 2 * hf + 1] + b1, 0.f));
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+
+  if (tid < CW_PRODUCER) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(CW_PRODUCER_REGS));
+    if (tma_a && tid != 0) return;  // one thread issues every TMA of a 1x1 conv
+    int s = 0;
+    uint32_t ph = 0;
+    // A by cp.async: this thread copies chunk ac (8 channels) of rows
+    // ar0 + 16 i of each slice, all at one tap; a row's tap (0, 0)
+    // relative to x, and its (iy0, ix0) packed in 16 bits each
+    const int ac = tid & 7, ar0 = tid >> 3;
+    for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int64_t m0 = t / tiles_n * CW_BM;
+      const int n0 = static_cast<int>(t % tiles_n) * BN;
+      int64_t row[8];
+      int org[8];
+      if (!tma_a) {
+        // output pixel (img, oy, ox) of row ar0 by division, of the next
+        // rows by steps of 16 pixels (M < 2^31)
+        int m = static_cast<int>(m0) + ar0;
+        int ox = m % a.Wo, oy = m / a.Wo % a.Ho, img = m / a.Wo / a.Ho;
 #pragma unroll
-  for (int e = tid; e < WG_BM * (TBN / 8); e += WG_THREADS) {
-    const int r = e / (TBN / 8), n = n0 + (e % (TBN / 8)) * 8;
-    const int64_t m = m0 + r;
-    if (m >= a.M || n >= a.Cout) continue;
-    bf16* y = n < a.split ? a.y0 + m * a.ldy0 + n : a.y1 + m * a.ldy1 + (n - a.split);
-    *reinterpret_cast<uint4*>(y) = *reinterpret_cast<const uint4*>(tile + r * LDT + (n - n0) * 2);
+        for (int i = 0; i < 8; ++i) {
+          row[i] = 0;
+          org[i] = -(1 << 30);  // rows past M read nothing: iy0 far below 0
+          if (m < a.M) {
+            const int iy0 = oy * a.stride - a.pad, ix0 = ox * a.stride - a.pad;
+            row[i] = ((static_cast<int64_t>(img) * a.H + iy0) * a.W + ix0) * a.ldx;
+            org[i] = iy0 * 65536 + (ix0 & 0xFFFF);
+          }
+          m += 16;
+          for (ox += 16; ox >= a.Wo; ox -= a.Wo)
+            if (++oy == a.Ho) {
+              oy = 0;
+              ++img;
+            }
+        }
+      }
+      int k = ac * 8, ci = k % a.Cin, kx = (k / a.Cin) % a.K, ky = (k / a.Cin) / a.K;
+      for (int kt = 0; kt < KT; ++kt) {
+        const uint32_t sa = s0 + s * S::STAGE, sb = sa + S::A_BYTES, full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ph ^ 1);  // both consumers are done with the stage
+        if (tid == 0) {
+          mbar_expect_tx(full, tma_a ? S::A_BYTES + S::B_BYTES : S::B_BYTES);
+          if (tma_a) tma_load(sa, &map_a, kt * CW_BK, static_cast<int>(m0), full);
+#pragma unroll
+          for (int i = 0; i < (BN + CW_BOX - 1) / CW_BOX; ++i)
+            tma_load(sb + i * S::BOX_BYTES, &map_b, n0 + i * CW_BOX, kt * CW_BK, full);
+        }
+        if (!tma_a) {
+          const bool kv = k < Kd;
+          const int64_t tap = (static_cast<int64_t>(ky) * a.W + kx) * a.ldx + ci;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int iy = (org[i] >> 16) + ky, ix = static_cast<int16_t>(org[i] & 0xFFFF) + kx;
+            const bool v = kv && static_cast<unsigned>(iy) < static_cast<unsigned>(a.H) &&
+                           static_cast<unsigned>(ix) < static_cast<unsigned>(a.W);
+            cp_async16(sa + sw128(ar0 + 16 * i, ac), v ? a.x + row[i] + tap : a.x, v);
+          }
+          cp_async_arrive(full);
+          k += CW_BK;
+          ci += CW_BK;
+          while (ci >= a.Cin) {
+            ci -= a.Cin;
+            if (++kx == a.K) {
+              kx = 0;
+              ++ky;
+            }
+          }
+        }
+        if (++s == S::STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CW_CONSUMER_REGS));
+    const int lt = tid - CW_PRODUCER, wgc = lt >> 7, warp = (lt >> 5) & 3, lane = lt & 31;
+    const bool leader = (lt & 127) == 0;  // arrives for its warpgroup
+    int s = 0, prev = 0;
+    uint32_t ph = 0;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int64_t m0 = t / tiles_n * CW_BM;
+      const int n0 = static_cast<int>(t % tiles_n) * BN;
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(full0 + 8 * s, ph);
+        // cp.async wrote A through the generic proxy: make it visible to wgmma
+        if (!tma_a) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        const uint32_t sa = s0 + s * S::STAGE, sb = sa + S::A_BYTES;
+        // A: this warpgroup's 64 rows, 8-row atoms 1024 B apart; B: boxes
+        // of 64 channels BOX_BYTES apart, 8-row atoms 1024 B apart (wgmma
+        // reads the first BN % 64 channels of the last box)
+        const uint64_t da = smem_desc(sa + wgc * 64 * 128, 16, 1024);
+        const uint64_t db = smem_desc(sb, S::BOX_BYTES, 1024);
+        fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < CW_BK / 16; ++kk)  // k16: 32 B along A's rows, 16 rows of B
+          wgmma_bf16(acc, da + 2 * kk, db + 2 * CW_BOX * kk, kt | kk);  // tile's first: d = 0
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the previous slice's wgmma has retired: release its stage
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_acc(acc);
+        if (kt > 0 && leader) mbar_arrive(empty0 + 8 * prev);
+        prev = s;
+        if (++s == S::STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(acc);
+      if (leader) mbar_arrive(empty0 + 8 * prev);
+
+      // epilogue: bias, ReLU and the rounding into this warpgroup's tile in
+      // shared memory, then out in 16-byte chunks of 8 channels, a row's
+      // chunks on neighbouring threads; the stores drain while the next
+      // tile's wgmma runs. Accumulator j of 8 columns holds rows
+      // (lane >> 2) + 8 hf of the warp's 16, columns 2 (lane & 3) + {0, 1}.
+      unsigned char* tile = smem_raw + (tile0 + wgc * S::TILE - smem_u32(smem_raw));
+      named_sync(1 + wgc);  // the warpgroup is done reading the previous tile
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = j * 8 + (lane & 3) * 2, n = n0 + c;
+        const float b0 = n < a.Cout ? __bfloat162float(a.b[n]) : 0.f;
+        const float b1 = n < a.Cout ? __bfloat162float(a.b[n + 1]) : 0.f;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = warp * 16 + (lane >> 2) + 8 * hf;
+          *reinterpret_cast<__nv_bfloat162*>(tile + r * S::LDT + c * 2) =
+              __floats2bfloat162_rn(fmaxf(acc[4 * j + 2 * hf] + b0, 0.f),
+                                    fmaxf(acc[4 * j + 2 * hf + 1] + b1, 0.f));
+        }
+      }
+      named_sync(1 + wgc);
+#pragma unroll
+      for (int e = lt & 127; e < 64 * (BN / 8); e += 128) {
+        const int r = e / (BN / 8), n = n0 + e % (BN / 8) * 8;
+        const int64_t m = m0 + wgc * 64 + r;
+        if (m >= a.M || n >= a.Cout) continue;
+        bf16* y = n < a.split ? a.y0 + m * a.ldy0 + n : a.y1 + m * a.ldy1 + (n - a.split);
+        *reinterpret_cast<uint4*>(y) =
+            *reinterpret_cast<const uint4*>(tile + r * S::LDT + (n - n0) * 2);
+      }
+    }
   }
 }
 
@@ -1072,26 +1259,102 @@ __global__ void __launch_bounds__(FrontCfg<T>::THREADS, FrontCfg<T>::BLOCKS)
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // The dispatch rule: the tensor cores take a conv whose 16-byte vectors (8
-// bf16 or 4 f32 channels) stay inside one tap and aligned, with the block
-// tile width BN that pads Cout less (128 on a tie); 0: no kernel takes it.
+// bf16 or 4 f32 channels) stay inside one tap and aligned; tc_tile gives
+// its block tile width, 0 where no kernel takes it.
 template <typename T>
-int tc_tile(const Conv<T>& a) {
+bool tc_ok(const Conv<T>& a) {
   constexpr int V = 16 / sizeof(T);
-  const bool tc = a.Cin % V == 0 && a.Cout % V == 0 && a.split % V == 0 && a.ldx % V == 0 &&
-                  a.ldy0 % V == 0 && a.ldy1 % V == 0 && aligned16(a.x) && aligned16(a.w) &&
-                  aligned16(a.y0) && aligned16(a.y1);
-  if (!tc) return 0;
+  return a.Cin % V == 0 && a.Cout % V == 0 && a.split % V == 0 && a.ldx % V == 0 &&
+         a.ldy0 % V == 0 && a.ldy1 % V == 0 && aligned16(a.x) && aligned16(a.w) &&
+         aligned16(a.y0) && aligned16(a.y1);
+}
+
+// f32: the width of 64 or 128 that pads Cout less (128 on a tie)
+int tc_tile(const Conv<float>& a) {
+  if (!tc_ok(a)) return 0;
   return a.Cout % 128 == 0 || a.Cout % 128 > 64 ? 128 : 64;
 }
 
-template <int TBN>
+// bf16: the fewest column tiles of at most 256 channels, each as wide as
+// their share of Cout rounded up to the 32 channels of a B box; one tile,
+// so A staged once, wherever Cout <= 256
+int tc_tile(const Conv<bf16>& a) {
+  if (!tc_ok(a)) return 0;
+  const int tiles = (a.Cout + 255) / 256;
+  return ((a.Cout + tiles - 1) / tiles + CW_GRANULE - 1) / CW_GRANULE * CW_GRANULE;
+}
+
+// bf16 conv launches by tile width (index width / 32), since the last
+// srcf_conv_bf16_launches_reset; atomic, as shards launch from threads
+std::atomic<int64_t> bf16_conv_launches[256 / CW_GRANULE + 1];
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (the
+// library links no driver library); null if the driver lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const char* name = "cuTensorMapEncodeTiled";
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                 : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 matrix of `rows` rows of `cols` elements, `ld` elements apart, in
+// boxes of box_rows x box_cols; elements outside it read 0
+int tensor_map(CUtensorMap* map, const bf16* base, uint64_t cols, uint64_t rows, int64_t ld,
+               uint32_t box_cols, uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows}, unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the tensor maps on the host for each launch (no synchronisation), then
+// one block an SM, or one a tile where there are fewer tiles
+template <int BN>
 int launch_wgmma(const Conv<bf16>& a, cudaStream_t st) {
-  using S = Wg<TBN>;
+  using S = Cw<BN>;
+  if (a.M == 0) return 0;
+  if (a.M > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);  // pixel indices
+  const int Kd = a.K * a.K * a.Cin;
+  CUtensorMap map_a, map_b;
+  // B: the HWIO weights, Kd rows of Cout, in boxes of 64 rows x 64 channels
+  TRY(tensor_map(&map_b, a.w, a.Cout, Kd, a.Cout, CW_BOX, CW_BK, CU_TENSOR_MAP_SWIZZLE_128B));
+  // A of a 1x1 conv: M pixel rows of Cin channels, ldx apart, in boxes of
+  // 128 rows x 64 channels (the other convs build it by cp.async)
+  if (a_by_tma(a)) {
+    TRY(tensor_map(&map_a, a.x, a.Cin, a.M, a.ldx, CW_BK, CW_BM, CU_TENSOR_MAP_SWIZZLE_128B));
+  } else {
+    map_a = map_b;
+  }
   TRY(static_cast<int>(cudaFuncSetAttribute(
-      conv_wgmma_kernel<TBN>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM)));
-  const int64_t blocks = (a.M + WG_BM - 1) / WG_BM * ((a.Cout + TBN - 1) / TBN);
-  conv_wgmma_kernel<TBN><<<static_cast<unsigned>(blocks), WG_THREADS, S::SMEM, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+      conv_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM)));
+  int dev, sms;
+  TRY(static_cast<int>(cudaGetDevice(&dev)));
+  TRY(static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)));
+  const int64_t tiles = (a.M + CW_BM - 1) / CW_BM * ((a.Cout + BN - 1) / BN);
+  const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  conv_wgmma_kernel<BN><<<blocks, CW_THREADS, S::SMEM, st>>>(a, map_a, map_b);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err == 0) ++bf16_conv_launches[BN / CW_GRANULE];
+  return err;
 }
 
 template <int TBN>
@@ -1106,8 +1369,14 @@ int launch_tf32x3(const Conv<float>& a, cudaStream_t st) {
 
 int launch(const Conv<bf16>& a, cudaStream_t st) {
   switch (tc_tile(a)) {
-    case 128: return launch_wgmma<128>(a, st);
+    case 32: return launch_wgmma<32>(a, st);
     case 64: return launch_wgmma<64>(a, st);
+    case 96: return launch_wgmma<96>(a, st);
+    case 128: return launch_wgmma<128>(a, st);
+    case 160: return launch_wgmma<160>(a, st);
+    case 192: return launch_wgmma<192>(a, st);
+    case 224: return launch_wgmma<224>(a, st);
+    case 256: return launch_wgmma<256>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);  // the rule refuses it
   }
 }
@@ -1342,8 +1611,21 @@ extern "C" int srcf_conv_f32(CONV_ARGS, void* stream) {
 extern "C" int srcf_conv_bf16(CONV_ARGS, void* stream) {
   return launch(MAKE_CONV(bf16), static_cast<cudaStream_t>(stream));
 }
-// the tile srcf_conv_f32 / srcf_conv_bf16 would launch for these arguments
-// (tc_tile): 64 or 128 on the tensor cores, 0 for a conv the rule refuses
-// (srcf_conv_* returns an error for it); launches nothing
+// the tile width srcf_conv_f32 / srcf_conv_bf16 would launch for these
+// arguments (tc_tile): f32 64 or 128, bf16 a multiple of 32 up to 256; 0
+// for a conv the rule refuses (srcf_conv_* returns an error for it);
+// launches nothing
 extern "C" int srcf_conv_f32_tile(CONV_ARGS) { return tc_tile(MAKE_CONV(float)); }
 extern "C" int srcf_conv_bf16_tile(CONV_ARGS) { return tc_tile(MAKE_CONV(bf16)); }
+
+// bf16 conv kernels launched at tile width `width` (every conv of the
+// segments and of srcf_conv_bf16) since the last reset; -1 for a width no
+// kernel has
+extern "C" int srcf_conv_bf16_launches(int width) {
+  if (width <= 0 || width > 256 || width % CW_GRANULE) return -1;
+  return static_cast<int>(bf16_conv_launches[width / CW_GRANULE].load());
+}
+extern "C" int srcf_conv_bf16_launches_reset() {
+  for (auto& n : bf16_conv_launches) n.store(0);
+  return 0;
+}

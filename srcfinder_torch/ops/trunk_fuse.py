@@ -54,7 +54,8 @@ __all__ = ["fused_stage12", "fused_stage12_gather", "trunk_s23", "trunk_s3", "tr
            "stage12_params",
            "trunk_segment_params", "pack_params", "PackedParams", "launches",
            "KERNEL", "SCRATCH_BUDGET_BYTES", "scratch_plan", "sub_batch",
-           "conv_plan", "ConvLaunch", "tensor_core_ok"]
+           "conv_plan", "ConvLaunch", "tensor_core_ok", "conv_tile_width", "conv_launches",
+           "BF16_TILE_GRANULE", "BF16_TILE_MAX", "BF16_TILE_WIDTHS"]
 
 #: inception channel plans (reference: cnn/archs/googlenet1.py:64-79):
 #: name -> (ch1x1, ch3x3red, ch3x3, ch5x5red, ch5x5, pool_proj)
@@ -88,11 +89,30 @@ _STAGE12_SIG = [_P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _P]
 _CONV_SIG = [_P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _L, _I, _P, _L, _P]
 _NAMES = ("fused_stage12", "trunk_s23", "trunk_s3", "trunk_s45")
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-KERNEL = CudaKernel("trunk.cu", {**{f"srcf_{n}_{s}": _STAGE12_SIG if n == "fused_stage12" else _SIG
-                                    for n in _NAMES for s in _SUFFIX.values()},
-                                 **{f"srcf_conv_{s}": _CONV_SIG for s in _SUFFIX.values()},
-                                 **{f"srcf_conv_{s}_tile": _CONV_SIG[:-1]
-                                    for s in _SUFFIX.values()}})
+#: the bf16 conv's tile widths: multiples of 32 channels (half of one of its
+#: 64-channel B boxes, the rest of which wgmma leaves unread), up to 256
+BF16_TILE_GRANULE, BF16_TILE_MAX = 32, 256
+BF16_TILE_WIDTHS = tuple(range(BF16_TILE_GRANULE, BF16_TILE_MAX + 1, BF16_TILE_GRANULE))
+
+
+class _TrunkKernel(CudaKernel):
+    """``csrc/trunk.cu``, whose library also counts the bf16 conv kernels
+    it launches (:func:`conv_launches`); :meth:`reset` zeroes those counts
+    too."""
+
+    def reset(self) -> None:
+        super().reset()
+        if self._lib is not None:
+            self._lib.srcf_conv_bf16_launches_reset()
+
+
+KERNEL = _TrunkKernel("trunk.cu", {**{f"srcf_{n}_{s}": _STAGE12_SIG if n == "fused_stage12"
+                                      else _SIG for n in _NAMES for s in _SUFFIX.values()},
+                                   **{f"srcf_conv_{s}": _CONV_SIG for s in _SUFFIX.values()},
+                                   **{f"srcf_conv_{s}_tile": _CONV_SIG[:-1]
+                                      for s in _SUFFIX.values()},
+                                   "srcf_conv_bf16_launches": [_I],
+                                   "srcf_conv_bf16_launches_reset": []})
 #: channels in a 16-byte vector, the unit the tensor-core kernels stage
 _VECTOR = {torch.float32: 4, torch.bfloat16: 8}
 
@@ -101,6 +121,17 @@ def launches(name: str) -> int:
     """Launches of one of the entry points of :data:`_NAMES`, or of
     ``"conv"`` (all dtypes), since the last ``KERNEL.reset()``."""
     return sum(KERNEL.counts[f"srcf_{name}_{s}"] for s in _SUFFIX.values())
+
+
+def conv_launches() -> dict:
+    """{tile width: launches} of the bf16 conv kernel since the last
+    ``KERNEL.reset()``, counting each conv the segments launch inside their
+    entry points as well as :func:`conv`'s (:func:`launches` counts entry
+    point calls); empty before the library is loaded."""
+    if KERNEL._lib is None:
+        return {}
+    counts = {w: KERNEL._lib.srcf_conv_bf16_launches(w) for w in BF16_TILE_WIDTHS}
+    return {w: n for w, n in counts.items() if n}
 
 
 # ---- parameters ----------------------------------------------------------
@@ -399,6 +430,21 @@ def conv_plan(name, side):
     raise ValueError(f"unknown entry point {name!r}")
 
 
+def conv_tile_width(cout: int, dtype=torch.bfloat16) -> int:
+    """The block tile width (output channels) ``tc_tile`` of
+    ``csrc/trunk.cu`` gives a conv of ``cout`` channels that
+    :func:`tensor_core_ok` admits. f32 (``conv_tf32x3_kernel``): 64 or
+    128, whichever pads ``cout`` less, 128 on a tie. bf16
+    (``conv_wgmma_kernel``): the fewest column tiles of at most
+    :data:`BF16_TILE_MAX` channels, each as wide as its share of ``cout``
+    rounded up to :data:`BF16_TILE_GRANULE`, so one tile (the im2col rows
+    staged once) wherever ``cout`` <= 256."""
+    if dtype == torch.float32:
+        return 128 if cout % 128 == 0 or cout % 128 > 64 else 64
+    share = -(-cout // -(-cout // BF16_TILE_MAX))      # ceil(cout / tiles)
+    return -(-share // BF16_TILE_GRANULE) * BF16_TILE_GRANULE
+
+
 def tensor_core_ok(c: ConvLaunch, dtype=torch.bfloat16) -> bool:
     """The dispatch rule of ``csrc/trunk.cu`` (``launch``, ``tc_tile``) for
     a conv on 16-byte-aligned maps: the tensor-core kernel of ``dtype``
@@ -525,9 +571,9 @@ def conv(x, k, b, y0, y1=None, stride=1, pad=0):
 
 def conv_tile(x, k, b, y0, y1=None, stride=1, pad=0):
     """The block tile width the card's dispatch (``tc_tile`` of
-    ``csrc/trunk.cu``) picks for :func:`conv` of these CUDA tensors: 64 or
-    128 on the tensor-core kernel of their dtype, 0 for a conv the rule
-    refuses. Launches nothing."""
+    ``csrc/trunk.cu``) picks for :func:`conv` of these CUDA tensors on the
+    tensor-core kernel of their dtype (:func:`conv_tile_width`), 0 for a
+    conv the rule refuses. Launches nothing."""
     args = _conv_args(x, k, b, y0, y1, stride, pad)
     return getattr(KERNEL.load(), f"srcf_conv_{_SUFFIX[x.dtype]}_tile")(*args)
 

@@ -356,6 +356,39 @@ def test_conv_plan_meets_tensor_core_rule(name, side, convs):
             for c in p2] == [("conv3", 64, True, True)]
 
 
+#: the plans of the segments at the CLI's window side (256), and of trunk_s23
+PLANS = [("fused_stage12", 256), ("trunk_s23", 128), ("trunk_s3", 32), ("trunk_s45", 16)]
+PLAN_CONVS = [(name, c) for name, side in PLANS for c in tf.conv_plan(name, side)]
+
+
+@pytest.mark.parametrize("name,c", PLAN_CONVS, ids=[f"{n}-{c.layer}" for n, c in PLAN_CONVS])
+def test_conv_tile_width_on_plan(name, c):
+    """The bf16 rule (conv_tile_width, tc_tile of csrc/trunk.cu) gives each
+    conv of the plans the fewest column tiles of at most 256 channels, one
+    wherever cout <= 256, at a width that is a multiple of 32 channels (half
+    a B box) and covers its share of cout; the f32 rule still gives the one
+    of 64 and 128 that pads cout less, 128 on a tie."""
+    w = tf.conv_tile_width(c.cout)
+    tiles = -(-c.cout // w)
+    assert 0 < w <= tf.BF16_TILE_MAX == 256 and w % tf.BF16_TILE_GRANULE == 0
+    assert tiles == -(-c.cout // 256) and (tiles == 1) == (c.cout <= 256)
+    assert w - tf.BF16_TILE_GRANULE < -(-c.cout // tiles) <= w
+    pads = {t: -(-c.cout // t) * t - c.cout for t in (64, 128)}
+    assert tf.conv_tile_width(c.cout, F32) == (128 if pads[128] <= pads[64] else 64)
+
+
+@pytest.mark.parametrize("name,side", PLANS)
+def test_conv_tile_width_pads_less_than_64_128(name, side):
+    """Summed over a plan, the bf16 tiles compute no more padded MACs than
+    the 64/128 rule's did (and the f32 rule's still do)."""
+    def padded(width):
+        return sum(c.side ** 2 * c.k ** 2 * c.cin * -(-c.cout // width(c.cout)) * width(c.cout)
+                   for c in tf.conv_plan(name, side))
+    real = padded(lambda cout: cout)
+    new, old = padded(tf.conv_tile_width), padded(lambda cout: tf.conv_tile_width(cout, F32))
+    assert real <= new <= old
+
+
 @pytest.mark.parametrize("dtype,cin,x_off,shift,cout,ok", [
     (F32, 8, 0, 0, 16, True),      # the rule met (the 64-wide tile pads 16 channels less)
     (F32, 8, 0, 0, 208, True),     # met (208 = 128 + 80: the 128-wide tile pads less)
