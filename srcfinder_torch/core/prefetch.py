@@ -4,11 +4,14 @@
 Port of the JAX package's ``core/prefetch.py::BlockPrefetcher``. On a CUDA
 device each block is copied into page-locked host memory and sent with a
 ``non_blocking`` copy on a side stream; the consumer's stream waits on
-that copy's event before it uses the block.
+that copy's event before it uses the block. The reader thread runs in a
+copy of the caller's context, so spans it opens are children of the span
+open around the loop.
 """
 
 from __future__ import annotations
 
+import contextvars
 import queue
 import threading
 from typing import Callable
@@ -82,7 +85,8 @@ class BlockPrefetcher:
             except BaseException as e:      # handed to the consumer
                 put(e)
 
-        thread = threading.Thread(target=producer, name="block-prefetch", daemon=True)
+        thread = threading.Thread(target=contextvars.copy_context().run, args=(producer,),
+                                  name="block-prefetch", daemon=True)
         thread.start()
         try:
             for i in range(self._n + 1):

@@ -17,6 +17,7 @@ import numpy as np
 
 from ..core import envi as envi_io
 from ..flow.objectstore import open_store
+from ..trace import span
 from .sds import MaskParams, get_radius_in_pixels, masks_for_cube
 
 __all__ = ["mask_output_name", "flightline_mask_config", "masks_for_flightline",
@@ -130,7 +131,11 @@ def masks_for_flightline(rdn_path: str, outpath: str, *,
     ``timers``: optional dict that receives the seconds of the phase's
     parts: the disk reads and the taps (in the reader thread), the pixel
     tests, the host growth and the waits for a block (see
-    :func:`.sds.masks_for_cube`)."""
+    :func:`.sds.masks_for_cube`). Spans (:mod:`srcfinder_torch.trace`):
+    "masks.read" (a block's disk read, in the reader thread, with its
+    ``bytes``), "masks.tap" (the tap's fill of a block), "masks.write"
+    (the ENVI save, with its ``bytes``) and those of
+    :func:`.sds.masks_for_cube`."""
     rdn = envi_io.open_envi(rdn_path)
     params, grow_px, cld_px, wavelengths = flightline_mask_config(
         rdn, rdn_path, saturationthreshold=saturationthreshold,
@@ -151,11 +156,14 @@ def masks_for_flightline(rdn_path: str, outpath: str, *,
             state["sel"] = [state["pos"][int(b)] for b in bands]
         pos = state["pos"]
         t0 = time.perf_counter()
-        blk = np.asarray(rdn.read_lines_bands(r0, r1, state["req"]), np.float32)
+        with span("masks.read") as s:
+            blk = np.asarray(rdn.read_lines_bands(r0, r1, state["req"]), np.float32)
+            s.count(bytes=blk.nbytes)
         t1 = time.perf_counter()
         clock["read"] += t1 - t0
         if tap is not None:
-            tap(r0, r1, blk, pos)
+            with span("masks.tap"):
+                tap(r0, r1, blk, pos)
             clock["tap"] += time.perf_counter() - t1
         nod[r0:r1] = blk[:, :, pos[0]] == -9999
         return blk[:, :, state["sel"]]
@@ -182,8 +190,9 @@ def masks_for_flightline(rdn_path: str, outpath: str, *,
     if stem.endswith(".hdr"):
         stem = os.path.splitext(stem)[0]
     outname = out_name or mask_output_name(stem)
-    envi_io.save_envi(os.path.join(outpath, outname + ".hdr"), out,
-                      metadata=meta, interleave="bil", force=True)
+    with span("masks.write", bytes=out.nbytes):
+        envi_io.save_envi(os.path.join(outpath, outname + ".hdr"), out,
+                          metadata=meta, interleave="bil", force=True)
     return outname
 
 

@@ -6,7 +6,9 @@ with an overlap; the four per-pixel spectral tests of a block run on the
 device as plain tensor ops (:func:`pixel_masks`); the flare-region growth
 and the cloud buffer (labeling and dilation) stay on the host in
 numpy/scipy. Output: a 4-band int16 mask with the radiance's nodata
-pixels stamped -9999.
+pixels stamped -9999. Spans (:mod:`srcfinder_torch.trace`): "masks.tests"
+(a block's pixel tests through its maps' copy to the host), "masks.grow"
+(a block's flare growth) and "masks.buffer" (the cloud buffer).
 
 Behaviour kept from the JAX package:
 - the reference's cloud test calls ``np.logical_and(a, b, c)`` with three
@@ -30,6 +32,7 @@ from scipy import ndimage
 from ..core.morphology import disk, imlabel
 from ..core.prefetch import BlockPrefetcher
 from ..device import resolve_device
+from ..trace import span
 
 __all__ = ["MaskParams", "pixel_masks", "grow_flare_mask", "dilate_mask",
            "masks_for_cube", "get_radius_in_pixels", "needed_bands"]
@@ -225,8 +228,9 @@ def masks_for_cube(read_block=None, nrows: int = None, ncols: int = None,
         vis_veto = vetoes.pop(bi)
         r0 = starts[bi]
         r1 = min(nrows, r0 + block_length)
-        sat, cloud, spec, dark = (m[: r1 - r0].cpu().numpy()
-                                  for m in pixel_masks(blk, wl, params))
+        with span("masks.tests"):
+            sat, cloud, spec, dark = (m[: r1 - r0].cpu().numpy()
+                                      for m in pixel_masks(blk, wl, params))
         t_grow = time.perf_counter()
         clock["pixel tests"] += t_grow - t_tests
         spec_full[r0:r1][spec] = 1
@@ -234,13 +238,17 @@ def masks_for_cube(read_block=None, nrows: int = None, ncols: int = None,
         dark_full[r0:r1][dark] = 1
         sat_full[r0:r1][sat] = 1
         if maskgrowradius_px is not None:
-            fl = grow_flare_mask(sat, spec, vis_veto, maskgrowradius_px, mingrowarea)
+            with span("masks.grow"):
+                fl = grow_flare_mask(sat, spec, vis_veto, maskgrowradius_px, mingrowarea)
             flare_full[r0:r1] = np.maximum(flare_full[r0:r1], fl)
         t_wait = time.perf_counter()
         clock["growth"] += t_wait - t_grow
 
-    cloud_buf = (dilate_mask(cloud_full, cldbfr_px) if cldbfr_px
-                 else cloud_full.astype(bool))
+    if cldbfr_px:
+        with span("masks.buffer"):
+            cloud_buf = dilate_mask(cloud_full, cldbfr_px)
+    else:
+        cloud_buf = cloud_full.astype(bool)
     clock["growth"] += time.perf_counter() - t_wait
     if timers is not None:
         timers.update(clock)

@@ -430,6 +430,51 @@ def test_spans_that_move_no_file_count_nothing(run_spans, name):
     assert got and all(s.counts == {} for s in got)
 
 
+MASKS_SPANS = ["masks.read", "masks.tap", "masks.tests", "masks.grow", "masks.buffer",
+               "masks.write"]
+
+
+def test_masks_spans_lie_under_read_masks(run_masks):
+    """Every masks span, the reader thread's reads and taps included, is a
+    child of the fused stage's ``read+masks`` phase in the flightline's
+    trace."""
+    prods, _ = run_masks
+    by = _by_name(prods)
+    (phase,) = by["read+masks"]
+    for name in MASKS_SPANS:
+        assert by.get(name), name
+        assert all(s.parent_id == phase.span_id for s in by[name]), name
+
+
+@pytest.mark.parametrize("name", ["masks.read", "masks.write"])
+def test_masks_file_spans_count_their_bytes(flightline, run_masks, name):
+    """The reads count the bands the fused read takes (the masks' tests,
+    band 0, the CMF's active window and RGB) over every line of the one
+    block; the write counts the mask file."""
+    from srcfinder_torch.cmf.pipeline import active_range_for_library
+    from srcfinder_torch.masks import sds
+    from srcfinder_torch.masks.cli import flightline_mask_config
+    _, rdn, libf, _ = flightline
+    prods, _ = run_masks
+    img = open_envi(rdn)
+    params, _, _, wl = flightline_mask_config(img, rdn)
+    a0, a1 = active_range_for_library(libf)
+    bands = set(sds.needed_bands(wl, params).tolist()) | {0} | set(range(a0 - 1, a1)) \
+        | {60, 42, 24}
+    want = {"masks.read": img.nrows * img.ncols * len(bands) * 4,
+            "masks.write": os.path.getsize(prods["masks"])}[name]
+    got = _by_name(prods)[name]
+    assert all(set(s.counts) == {"bytes"} for s in got)
+    assert sum(s.counts["bytes"] for s in got) == want
+
+
+@pytest.mark.parametrize("name", ["masks.tap", "masks.tests", "masks.grow", "masks.buffer"])
+def test_masks_spans_that_move_no_file_count_nothing(run_masks, name):
+    prods, _ = run_masks
+    got = _by_name(prods)[name]
+    assert got and all(s.counts == {} for s in got)
+
+
 # ---- the emission stage: --winds, the IME merge, quicklooks, --watch ----
 WIND_KW = dict(wind_ext=".npz", quicklooks=True)
 # exact: ids, names, coordinates, thresholds and the wind statistics (they

@@ -176,3 +176,24 @@ def test_stage_announces_times_and_closes(fails):
     assert log == ["[STAGE] cmf", f"[STAGE] cmf done in {st.seconds:.1f}s"]
     assert st.parent_id == run.span_id and trace.spans()[-1] is run
     assert [s.name for s in trace.spans(run.trace_id)] == ["cmf.read", "cmf", "run"]
+
+
+def test_prefetcher_reader_spans_nest_in_the_callers_span():
+    """The block reader's thread runs in a copy of the caller's context: a
+    span its ``read_fn`` opens is a child of the span open around the loop,
+    in the same trace, and the caller's own spans still nest as before."""
+    import numpy as np
+    from srcfinder_torch.core.prefetch import BlockPrefetcher
+
+    def read(i):
+        with trace.span("read", bytes=i):
+            return np.full(2, i)
+    with trace.span("phase") as phase:
+        for i, _ in BlockPrefetcher(read, 3):
+            with trace.span("use"):
+                pass
+    kids = [s for s in trace.spans(phase.trace_id) if s.parent_id == phase.span_id]
+    assert sorted(s.name for s in kids) == ["read"] * 3 + ["use"] * 3
+    assert sorted(s.counts["bytes"] for s in kids if s.name == "read") == [0, 1, 2]
+    assert all(phase.start_ns <= s.start_ns <= s.end_ns <= phase.end_ns for s in kids)
+    assert trace._open.get() is None
