@@ -45,6 +45,15 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    minimum within TOL of it). Then both at small shapes off that path
    (ODD_SHAPES: 82 and 415 bands, unaligned rows, one line) in both
    dtypes. Prints the eigensolve's time and one {"kernels": [...]} line.
+3a. The masks' dilation kernel (phase_morph, "morph" line;
+   srcfinder_torch/ops/csrc/morph.cu, which replaces no TPU kernel) at the
+   masks cell's shapes: a 554 x 598 mask block by disk(49) and a 2801 x 598
+   cloud map by the r = 49 diamond, at seed densities 0 to 1, equal bit for
+   bit to its plain version on the card (and to scipy at 1e-4 and 1e-2),
+   two launches equal; its CUDA-event ms a call on one 4 x 4 seed and its
+   kernels' device ms (torch.profiler) beside their bound,
+   the plain version's ms on the card and scipy's host ms. Its launches on
+   the main path are counted in phase 8's masked flightline.
 4. The main path at real size: a seeded synthetic AVIRIS-NG-shaped
    flightline (2801 lines x 598 samples x 425 bands, f32 BIL, ~2.85 GB,
    written in line blocks) with a methane plume and a CH4 library,
@@ -240,18 +249,21 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    FCN through the halo-blocked path (3 windows of 5,824 lines). Checks
    the plume's z, the route and windows, that each mask band is
    non-empty and equal to masks_for_flightline on the CPU over the same
-   file, that K1/K2 launched, fcn_saliency_image(method="dilated") on the
-   CMF band (its default windows: 5 of 3,328 canvas lines), with the run's
-   weights against the run's saliency and with the trained-like weights
-   against the blocked phase pass with them, each within PATH_TOL at
+   file, that K1/K2 launched, that the dilation kernel launched once for
+   each dilation the CPU run made (by element, none zero: the flare's
+   mask blocks by disk, the cloud buffer by diamond),
+   fcn_saliency_image(method="dilated") on the CMF band (its default
+   windows: 5 of 3,328 canvas lines), with the run's weights against
+   the run's saliency and with the trained-like weights against the
+   blocked phase pass with them, each within PATH_TOL at
    DILATED_REACH from every edge, nodata stamped alike, each window's
    peak under the card's memory, its seconds per canvas pixel within
    DILATED_SLOWDOWN of phase 7's one pass (windows, seconds and peaks
    printed), and K1/K2 at this chunk shape (12,000 x 256
    x 72, f32) against their plain versions (TOL, repeats bit-identical);
    prints stage seconds, the fused read+masks phase by part (disk reads
-   and slab taps in the reader thread; pixel tests, host growth and block
-   waits in the main one), peak device memory, the windows' peaks, and
+   and slab taps in the reader thread; pixel tests, growth and buffer, and
+   block waits in the main one), peak device memory, the windows' peaks, and
    the unblocked phase pass's peak at the pixel ceiling (8,352 lines).
    Then times the fused read's band runs of the file through the old
    memmap fancy index, DirectFile with O_DIRECT, DirectFile with
@@ -1117,6 +1129,74 @@ def write_weights(workdir):
     wf = os.path.join(workdir, "googlenet_seed0.npz")
     save_weights(wf, torch_state_dict_to_flax(model.state_dict()))
     return wf
+
+
+# The masks' dilations at the masks cell's shapes (ops/morph.py): a mask
+# block (block_step 500 + ceil(mingrowarea 5 + 49)) grown by disk(49), and
+# a 2801-line cloud map buffered by the r = 49 diamond (150 m at 3.1 m)
+MORPH_R = 49
+MORPH_SHAPES = (("disk", (554, SCENE[1])), ("diamond", (SCENE[0], SCENE[1])))
+
+
+def morph_bound(H, W):
+    """The dilation's least time (ms): H*W bytes in and H*W out at the
+    card's bandwidth (its scans take O(1) operations a pixel)."""
+    return dict(bound_ms=2 * H * W / PEAK_BYTES * 1e3, bound_by="bytes")
+
+
+def phase_morph():
+    """The masks' dilation kernel (ops/morph.py, csrc/morph.cu) at the masks
+    cell's shapes: bit for bit against its plain version on the card and
+    against scipy on the host, at seed densities 0, 1e-4, 1e-2, 0.5 and 1;
+    the CUDA-event ms of a call on one 4 x 4 seed (back to back: the
+    wrapper's table copy and launches count) and its two kernels' device ms
+    (torch.profiler) beside their bound, the plain version's ms on the card
+    and scipy's host ms. Prints one {"morph": ...} line and returns those
+    readings by "<element>_<H>x<W>"."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+    from srcfinder_torch.core.morphology import disk
+    from srcfinder_torch.ops import morph
+
+    def scipy_dilation(m, element):
+        if element == "disk":
+            return ndimage.binary_dilation(m, structure=disk(MORPH_R, dtype=bool))
+        for _ in range(MORPH_R):
+            m = ndimage.binary_dilation(m)
+        return m
+
+    out = {}
+    rng = np.random.default_rng(598)
+    for element, (H, W) in MORPH_SHAPES:
+        table = morph.halfwidths(element, MORPH_R)
+        for density in (0.0, 1e-4, 1e-2, 0.5, 1.0):
+            m = rng.random((H, W)) < density
+            seeds = torch.from_numpy(m).cuda()
+            got = morph.dilate(seeds, MORPH_R, element)
+            if not torch.equal(got, morph.dilate_ref(seeds, table)):
+                fail(f"morph: {element} {H} x {W} at density {density}: kernel != plain")
+            if not torch.equal(got, morph.dilate(seeds, MORPH_R, element)):
+                fail(f"morph: {element} at density {density}: two launches differ")
+            if density in (1e-4, 1e-2) and not (got.cpu().numpy()
+                                                == scipy_dilation(m, element)).all():
+                fail(f"morph: {element} at density {density}: kernel != scipy")
+        m = np.zeros((H, W), bool)
+        m[H // 2:H // 2 + 4, W // 2:W // 2 + 4] = True
+        seeds = torch.from_numpy(m).cuda()
+        _, scipy_s = _host_s(lambda: scipy_dilation(m, element))
+        prof = device_profile(lambda: [morph.dilate(seeds, MORPH_R, element)
+                                       for _ in range(20)])
+        kernel_ms = sum(t for name, t, _ in prof["top"]
+                        if "row_reach_kernel" in name or "column_cover_kernel" in name) / 20
+        out[f"{element}_{H}x{W}"] = dict(
+            ms=cuda_ms(lambda: morph.dilate(seeds, MORPH_R, element), reps=50),
+            kernel_device_ms=kernel_ms, **morph_bound(H, W),
+            plain_ms=cuda_ms(lambda: morph.dilate_ref(seeds, table), reps=5),
+            scipy_host_ms=scipy_s * 1e3, radius=MORPH_R)
+
+    print(json.dumps({"morph": out, "gpu": nvidia_smi_line()}))
+    return out
 
 
 def phase_main_path(workdir):
@@ -3470,7 +3550,8 @@ def long_dilated(ppmm, sal, wf, cnn_weights, one_pass_s_per_px):
 
 def phase_long_flightline(workdir, libf, wf, cnn_weights, one_pass_s_per_px):
     """A real-length flightline through run_flightline with the masks and
-    IME (phase 8). Returns the K1/K2 checks at its chunk shape."""
+    IME (phase 8). Returns the K1/K2 checks at its chunk shape and the
+    dilation kernel's launches by element."""
     import numpy as np
     import pandas as pd
     import torch
@@ -3479,7 +3560,7 @@ def phase_long_flightline(workdir, libf, wf, cnn_weights, one_pass_s_per_px):
     from srcfinder_torch.detect.preprocess import norm_for_model, preprocess_ch4
     from srcfinder_torch.flow.pipeline_cli import run_flightline
     from srcfinder_torch.masks.cli import masks_for_flightline
-    from srcfinder_torch.ops import loo, moments
+    from srcfinder_torch.ops import loo, moments, morph
 
     gen = torch.Generator(device="cuda").manual_seed(12000)
     t0 = time.time()
@@ -3505,6 +3586,7 @@ def phase_long_flightline(workdir, libf, wf, cnn_weights, one_pass_s_per_px):
     torch.cuda.reset_peak_memory_stats()
     moments.KERNEL.reset()
     loo.KERNEL.reset()
+    morph.KERNEL.reset()
     tfp.fcn_phase_saliency_blocked, tfp.fcn_phase_saliency = count_blocked, count_window
     try:
         t0 = time.time()
@@ -3517,6 +3599,7 @@ def phase_long_flightline(workdir, libf, wf, cnn_weights, one_pass_s_per_px):
     finally:
         tfp.fcn_phase_saliency_blocked, tfp.fcn_phase_saliency = blocked, window
     launches = {"masked_moments": moments.KERNEL.launches, "loo_sweep": loo.KERNEL.launches}
+    dilate_launches = morph.launches()
 
     nl, ns, _ = LONG_SCENE
     cmf = open_envi(prods["cmf"]).load()
@@ -3528,9 +3611,20 @@ def phase_long_flightline(workdir, libf, wf, cnn_weights, one_pass_s_per_px):
     sal = open_envi(prods["saliency"]).load()[..., 0]
     sval = sal != -9999.0
     masks = open_envi(prods["masks"]).load()
-    t0 = time.time()
-    ref_name = masks_for_flightline(rdn + ".hdr", workdir, out_name="masks_cpu", device="cpu")
-    cpu_masks_s = time.time() - t0
+    # the CPU run's dilations by element: the launches the card's run owes
+    dilate, cpu_dilations = morph.dilate, dict.fromkeys(morph.ELEMENTS, 0)
+
+    def count_dilate(seeds, radius, element):
+        cpu_dilations[element] += 1
+        return dilate(seeds, radius, element)
+    morph.dilate = count_dilate
+    try:
+        t0 = time.time()
+        ref_name = masks_for_flightline(rdn + ".hdr", workdir, out_name="masks_cpu",
+                                        device="cpu")
+        cpu_masks_s = time.time() - t0
+    finally:
+        morph.dilate = dilate
     ref = open_envi(os.path.join(workdir, ref_name)).load()
     positives = {name: int((masks[..., i] > 0).sum())
                  for i, name in enumerate(("cloud", "specular", "flare", "dark"))}
@@ -3566,7 +3660,8 @@ def phase_long_flightline(workdir, libf, wf, cnn_weights, one_pass_s_per_px):
         n_candidates=len(pd.read_csv(prods["detections_csv"])),
         ime_rows=len(pd.read_csv(prods["ime_csv"])),
         mask_positives=positives, masks_equal_cpu=bool(np.array_equal(masks, ref)),
-        cpu_masks_s=cpu_masks_s, launches=launches, pixel_ceiling=stats,
+        cpu_masks_s=cpu_masks_s, launches=launches, dilate_launches=dilate_launches,
+        cpu_dilations=cpu_dilations, pixel_ceiling=stats,
         kernels_L12000={k[0]: {f: v[f] for f in ("max_rel_err", "bit_identical", "ms",
                                                  "plain_ms", "bound_ms")}
                         for k, v in checks.items()})
@@ -3584,6 +3679,9 @@ def phase_long_flightline(workdir, libf, wf, cnn_weights, one_pass_s_per_px):
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the long flightline")
+    if not all(dilate_launches.values()) or dilate_launches != cpu_dilations:
+        fail(f"long flightline: the dilation kernel launched {dilate_launches}, "
+             f"the CPU run dilated {cpu_dilations}")
     if not (np.isfinite(ppmm[valid]).all() and (ppmm[0, :3] == -9999.0).all()):
         fail("long flightline: CMF nodata stamp or finiteness")
     if not ((sal[sval] >= 0) & (sal[sval] <= 1)).all() or sval.sum() != nl * ns - 3:
@@ -3595,7 +3693,7 @@ def phase_long_flightline(workdir, libf, wf, cnn_weights, one_pass_s_per_px):
     if not np.array_equal(masks, ref):
         fail(f"the masks product differs from the CPU run on "
              f"{int((masks != ref).any(axis=-1).sum())} pixels")
-    return checks
+    return checks, dilate_launches
 
 
 # ---- detection post-processing (phase 4d) and the trainer (phase 4e) ----
@@ -4564,8 +4662,8 @@ def main():
     print(json.dumps({"python": sys.version.split()[0], "torch": torch.__version__,
                       "cuda": torch.version.cuda}))
 
-    from srcfinder_torch.ops import build, loo, moments, trunk_fuse
-    built = (moments.KERNEL, loo.KERNEL, trunk_fuse.KERNEL)
+    from srcfinder_torch.ops import build, loo, moments, morph, trunk_fuse
+    built = (moments.KERNEL, loo.KERNEL, trunk_fuse.KERNEL, morph.KERNEL)
     t0 = time.time()
     build.build_all(built)
     print(json.dumps({"build_s": time.time() - t0, "ptxas": {
@@ -4597,6 +4695,7 @@ def main():
     timed("conv_shapes", phase_conv_shapes)
     timed("stage12_layers", stage12_layers)
     checks = timed("kernels", phase_kernels)
+    morph_stats = timed("morph", phase_morph)
 
     workdir = os.path.join(HERE, "chip_smoke_work")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -4624,8 +4723,10 @@ def main():
                             cnn_weights)
         for f in (rdn, rdn + ".hdr"):          # bound the disk use
             os.remove(f)
-        checks.update(timed("long_flightline", phase_long_flightline, workdir, libf,
-                            write_weights(workdir), cnn_weights, dilated_s_per_px))
+        long_checks, dilate_launches = timed("long_flightline", phase_long_flightline,
+                                             workdir, libf, write_weights(workdir),
+                                             cnn_weights, dilated_s_per_px)
+        checks.update(long_checks)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         print(json.dumps({"phase_seconds": phase_s}))
@@ -4688,6 +4789,14 @@ def main():
             n, run = mg_launches[kname]
             entry["sharded"] = dict(launches=n, launches_in=run)
         kernels.append(entry)
+    # the masks' dilation: its launches in phase 8's masked flightline by
+    # element, its times and bound from phase 3a (the flare block's disk on
+    # top, the cloud map's diamond nested)
+    (top, top_stats), *others = morph_stats.items()
+    kernels.append(dict(name="dilate", route="cuda", source="srcfinder_torch/ops/csrc/morph.cu",
+                        replaces="none (host scipy)", launches=dilate_launches,
+                        launches_in="run_flightline do_masks=True (12,000 lines)",
+                        config=top, **top_stats, **dict(others)))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

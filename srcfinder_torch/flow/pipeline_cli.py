@@ -82,7 +82,8 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
     """Run all stages for one flightline; returns a dict of products
     (paths) plus ``timers``, ``spans`` and, after a fused stage, "read+masks
     parts" (seconds of the disk reads, the slab taps, the pixel tests, the
-    host growth and the block waits; the reads and taps run in a reader
+    growth and buffer (labelling on the host, dilations on the device)
+    and the block waits; the reads and taps run in a reader
     thread beside the rest).
 
     ``timers``: seconds of each stage run ("cmf", "masks", "fcn",

@@ -59,7 +59,8 @@ def build_parser():
     p.add_argument("--store-out", default=None,
                    help="object-store URI to UPLOAD the mask products to")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="device of the per-pixel tests (cuda raises without a card)")
+                   help="device of the per-pixel tests and the dilations "
+                        "(cuda raises without a card)")
     p.add_argument("-h", "--help", action="help")
     return p
 
@@ -130,7 +131,7 @@ def masks_for_flightline(rdn_path: str, outpath: str, *,
     ``device``: "cuda" (default; raises without a card) or "cpu".
     ``timers``: optional dict that receives the seconds of the phase's
     parts: the disk reads and the taps (in the reader thread), the pixel
-    tests, the host growth and the waits for a block (see
+    tests, the growth and buffer and the waits for a block (see
     :func:`.sds.masks_for_cube`). Spans (:mod:`srcfinder_torch.trace`):
     "masks.read" (a block's disk read, in the reader thread, with its
     ``bytes``), "masks.tap" (the tap's fill of a block), "masks.write"

@@ -3,12 +3,15 @@
 Port of the JAX package's ``masks/sds.py`` (reference:
 spectrometer_masks/masks_sds.py): the flightline streams in line blocks
 with an overlap; the four per-pixel spectral tests of a block run on the
-device as plain tensor ops (:func:`pixel_masks`); the flare-region growth
-and the cloud buffer (labeling and dilation) stay on the host in
-numpy/scipy. Output: a 4-band int16 mask with the radiance's nodata
-pixels stamped -9999. Spans (:mod:`srcfinder_torch.trace`): "masks.tests"
-(a block's pixel tests through its maps' copy to the host), "masks.grow"
-(a block's flare growth) and "masks.buffer" (the cloud buffer).
+device as plain tensor ops (:func:`pixel_masks`); the flare regions are
+labelled on the host (scipy), and the flare growth and the cloud buffer
+dilate on the same device (:func:`srcfinder_torch.ops.morph.dilate`: a
+CUDA kernel on a card, its plain version on the CPU). Output: a 4-band
+int16 mask with the radiance's nodata pixels stamped -9999. Spans
+(:mod:`srcfinder_torch.trace`): "masks.tests" (a block's pixel tests
+through its maps' copy to the host), "masks.grow" (a block's flare
+growth) and "masks.buffer" (the cloud buffer), each through its
+dilation's copy back to the host.
 
 Behaviour kept from the JAX package:
 - the reference's cloud test calls ``np.logical_and(a, b, c)`` with three
@@ -27,11 +30,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from scipy import ndimage
 
-from ..core.morphology import disk, imlabel
+from ..core.morphology import imlabel
 from ..core.prefetch import BlockPrefetcher
 from ..device import resolve_device
+from ..ops import morph
 from ..trace import span
 
 __all__ = ["MaskParams", "pixel_masks", "grow_flare_mask", "dilate_mask",
@@ -111,12 +114,21 @@ def get_radius_in_pixels(value_str: str, metadata) -> float:
     raise RuntimeError("Unknown unit specified.")
 
 
+def _dilate(mask, radius: int, element: str, device) -> np.ndarray:
+    """A host bool map dilated on ``device`` by ``element`` of ``radius``
+    (:func:`srcfinder_torch.ops.morph.dilate`), back on the host."""
+    seeds = torch.from_numpy(np.ascontiguousarray(mask, bool)).to(device)
+    return morph.dilate(seeds, radius, element).cpu().numpy()
+
+
 def grow_flare_mask(saturated, spec, vis_veto, grow_radius_px: float,
-                    mingrowarea) -> np.ndarray:
+                    mingrowarea, device="cpu") -> np.ndarray:
     """Flare band: 2 where the grown buffer of large saturated regions
     lands, 1 at saturated non-specular pixels (reference:
     masks_sds.py:313-332). ``vis_veto``: bool map where the 500 nm
-    radiance is at least the growth threshold (sun glint, not grown)."""
+    radiance is at least the growth threshold (sun glint, not grown).
+    The regions are labelled on the host; the seeds dilate by
+    ``disk(grow_radius_px)`` on ``device``."""
     saturated = np.asarray(saturated, bool)
     out = np.zeros(saturated.shape, np.uint8)
     lab = imlabel(saturated)  # 2-connectivity
@@ -126,20 +138,16 @@ def grow_flare_mask(saturated, spec, vis_veto, grow_radius_px: float,
         keep[0] = False
         grow_seeds = keep[lab] & ~np.asarray(vis_veto, bool)
         if grow_seeds.any():
-            selem = disk(int(grow_radius_px), dtype=bool)
-            grown = ndimage.binary_dilation(grow_seeds, structure=selem)
-            out[grown] = 2
+            out[_dilate(grow_seeds, int(grow_radius_px), "disk", device)] = 2
     out[saturated & ~np.asarray(spec, bool)] = 1
     return out
 
 
-def dilate_mask(binmask, radius_px: float) -> np.ndarray:
+def dilate_mask(binmask, radius_px: float, device="cpu") -> np.ndarray:
     """Iterated 3x3-cross dilation, ceil(radius) times
-    (reference: masks_sds.py:252-272)."""
-    buf = np.asarray(binmask, bool)
-    for _ in range(int(np.ceil(radius_px))):
-        buf = ndimage.binary_dilation(buf)
-    return buf
+    (reference: masks_sds.py:252-272), as one dilation by the taxicab
+    ball of that radius on ``device``."""
+    return _dilate(binmask, int(np.ceil(radius_px)), "diamond", device)
 
 
 def needed_bands(wavelengths, params: MaskParams):
@@ -179,12 +187,13 @@ def masks_for_cube(read_block=None, nrows: int = None, ncols: int = None,
     ``read_block_bands(r0, r1, bands)`` -> (rows, cols, len(bands)),
     which reads only the needed bands. Blocks are read one ahead in a
     background thread (:class:`BlockPrefetcher`) while the current one is
-    tested on ``device``; the last block is padded with -9999 rows, which
+    tested on ``device``, where the flare growth and the cloud buffer
+    dilate too; the last block is padded with -9999 rows, which
     trip no test. ``nodata_row0``: a bool map, or a callable evaluated
     after the streaming loop, of the pixels stamped -9999.
     ``device``: "cuda" (default; raises without a card) or "cpu".
     ``timers``: optional dict that receives the seconds of the pixel tests
-    (to their maps on the host), of the host growth and buffer, and of
+    (to their maps on the host), of the growth and buffer, and of
     the waits for the next block ("pixel tests", "growth", "wait").
     """
     dev = resolve_device(device)
@@ -239,14 +248,15 @@ def masks_for_cube(read_block=None, nrows: int = None, ncols: int = None,
         sat_full[r0:r1][sat] = 1
         if maskgrowradius_px is not None:
             with span("masks.grow"):
-                fl = grow_flare_mask(sat, spec, vis_veto, maskgrowradius_px, mingrowarea)
+                fl = grow_flare_mask(sat, spec, vis_veto, maskgrowradius_px, mingrowarea,
+                                     device=dev)
             flare_full[r0:r1] = np.maximum(flare_full[r0:r1], fl)
         t_wait = time.perf_counter()
         clock["growth"] += t_wait - t_grow
 
     if cldbfr_px:
         with span("masks.buffer"):
-            cloud_buf = dilate_mask(cloud_full, cldbfr_px)
+            cloud_buf = dilate_mask(cloud_full, cldbfr_px, device=dev)
     else:
         cloud_buf = cloud_full.astype(bool)
     clock["growth"] += time.perf_counter() - t_wait
