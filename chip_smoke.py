@@ -261,16 +261,16 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    DILATED_SLOWDOWN of phase 7's one pass (windows, seconds and peaks
    printed), and K1/K2 at this chunk shape (12,000 x 256
    x 72, f32) against their plain versions (TOL, repeats bit-identical);
-   prints stage seconds, the fused read+masks phase by part (disk reads
-   and slab taps in the reader thread; pixel tests, growth and buffer, and
-   block waits in the main one), peak device memory, the windows' peaks, and
+   prints stage seconds, the fused read+masks phase by part (the seconds
+   of its masks.* spans summed by name: disk reads and slab taps in the
+   reader thread; pixel tests, growth, buffer and write in the main
+   one), peak device memory, the windows' peaks, and
    the unblocked phase pass's peak at the pixel ceiling (8,352 lines).
    Then times the fused read's band runs of the file through the old
-   memmap fancy index, DirectFile with O_DIRECT, DirectFile with
-   SRCFINDER_DIRECT_IO=0 (the port's mapped copies) and one pread per run
-   per line (the JAX package's buffered path; it and the memmap index are
-   kept here only), in turns per 500-line block, byte-equal, with the
-   mode each file ended in ("readers").
+   memmap fancy index, the port's DirectFile (its copies out of the
+   file's mapping) and one pread per run per line (the JAX package's
+   buffered path; it and the memmap index are kept here only), in turns
+   per 500-line block, byte-equal ("readers").
 
 9. Multi-GPU ("multigpu" line; it runs after phase 7, on the main path's
    scene): a mesh of every card where there are two or more, else
@@ -3418,16 +3418,15 @@ def reader_times(rdn, libf, step=500):
     """The masks' and CMF's requested band runs of ``rdn`` (the union the
     fused read takes: the mask tests' bands, band 0, the CH4 window and
     the RGB bands), read in blocks of ``step`` lines through three
-    readers in turns: the old memmap fancy index, DirectFile with
-    O_DIRECT, DirectFile with SRCFINDER_DIRECT_IO=0 (its copies out of
-    the file's mapping, the port's default), and one ``pread`` per run
-    per line (the JAX package's buffered path). Each read's result (the
-    new readers return a transposed view) then becomes a contiguous
-    (rows, samples, bands) array, the old reader's layout, and all must
-    be byte-equal. Returns seconds per reader (the reads, and apart the
-    conversions), bytes read and the mode each DirectFile ended in."""
+    readers in turns: the old memmap fancy index, the port's DirectFile
+    (its copies out of the file's mapping), and one ``pread`` per run per
+    line (the JAX package's buffered path). Each read's result (the new
+    readers return a transposed view) then becomes a contiguous (rows,
+    samples, bands) array, the old reader's layout, and all must be
+    byte-equal. Returns seconds per reader (the reads, and apart the
+    conversions) and bytes read."""
     import numpy as np
-    from srcfinder_torch.cmf.pipeline import active_range_for_library
+    from srcfinder_torch.cmf.pipeline import RGB_BANDS, active_range_for_library
     from srcfinder_torch.core.envi import open_envi
     from srcfinder_torch.masks.cli import flightline_mask_config
     from srcfinder_torch.masks.sds import needed_bands
@@ -3435,23 +3434,11 @@ def reader_times(rdn, libf, step=500):
     params, _, _, wl = flightline_mask_config(img, rdn)
     a0, a1 = active_range_for_library(libf)
     req = sorted(set(needed_bands(wl, params).tolist()) | {0} | set(range(a0 - 1, a1))
-                 | {60, 42, 24})
-    imgs = {}
-    prev = os.environ.get("SRCFINDER_DIRECT_IO")
-    try:
-        for name, flag in (("direct", "1"), ("buffered", "0")):
-            os.environ["SRCFINDER_DIRECT_IO"] = flag
-            imgs[name] = open_envi(rdn + ".hdr")
-            imgs[name]._direct()                    # opens in the mode the flag sets
-    finally:
-        if prev is None:
-            os.environ.pop("SRCFINDER_DIRECT_IO", None)
-        else:
-            os.environ["SRCFINDER_DIRECT_IO"] = prev
+                 | set(RGB_BANDS))
+    mapped = open_envi(rdn + ".hdr")
     fd = os.open(rdn, os.O_RDONLY)
     readers = {"memmap": lambda r0, r1: memmap_read_lines_bands(img, r0, r1, req),
-               "direct": lambda r0, r1: imgs["direct"].read_lines_bands(r0, r1, req),
-               "buffered": lambda r0, r1: imgs["buffered"].read_lines_bands(r0, r1, req),
+               "mapped": lambda r0, r1: mapped.read_lines_bands(r0, r1, req),
                "pread": lambda r0, r1: pread_read_lines_bands(img, fd, r0, r1, req)}
     names = list(readers)
     secs = dict.fromkeys(names, 0.0)
@@ -3473,9 +3460,7 @@ def reader_times(rdn, libf, step=500):
                 fail(f"reader {name} differs from the memmap read at lines {r0}:{r1}")
     os.close(fd)
     return dict(seconds=secs, to_contiguous_seconds=bip, bands=len(req), runs=int(1 + np.count_nonzero(np.diff(req) > 1)),
-                bytes=img.nrows * img.ncols * len(req) * img.dtype.itemsize, step=step,
-                modes={n: im._direct().mode for n, im in imgs.items()},
-                default_mode=open_envi(rdn + ".hdr")._direct().mode)
+                bytes=img.nrows * img.ncols * len(req) * img.dtype.itemsize, step=step)
 
 
 def long_dilated(ppmm, sal, wf, cnn_weights, one_pass_s_per_px):
@@ -3639,6 +3624,12 @@ def phase_long_flightline(workdir, libf, wf, cnn_weights, one_pass_s_per_px):
     _timed(stats, f"unblocked_{ceiling}", lambda: tfp.fcn_phase_saliency(model, x))
     del x, model
 
+    # the fused read+masks phase by part: the masks' spans, seconds summed
+    # by name (the reads and taps run in the reader thread)
+    masks_parts = {}
+    for sp in prods["spans"]:
+        if sp.name.startswith("masks."):
+            masks_parts[sp.name] = masks_parts.get(sp.name, 0.0) + sp.seconds
     # the fused read's readers, old and new, on the same file
     readers = reader_times(rdn, libf)
 
@@ -3653,7 +3644,7 @@ def phase_long_flightline(workdir, libf, wf, cnn_weights, one_pass_s_per_px):
     summary = dict(
         scene=list(LONG_SCENE), setup_s=setup_s, disk_free_gb_after_write=free_gb,
         run_s=total_s, stage_s=prods["timers"],
-        read_masks_parts=prods.get("read+masks parts"), readers=readers,
+        masks_parts=masks_parts, readers=readers,
         fcn_method="phase-blocked" if seen["blocked"] else "unblocked",
         fcn_windows=seen["windows"], dilated=dilated, peak_mem_bytes=peak, plume_z=float(z),
         plume_ppmm=float(plume), background_ppmm=float(bg), background_sd=float(bg_sd),

@@ -28,7 +28,12 @@ from ..device import resolve_device
 from ..trace import span
 from . import matched_filter as mfmod
 
-__all__ = ["active_range_for_library", "load_library", "robust_mf_image"]
+__all__ = ["active_range_for_library", "load_library", "robust_mf_image",
+           "preload_slabs", "RGB_BANDS"]
+
+#: the radiance bands of the product's red, green and blue (reference:
+#: robust_mf.py's ``--rgb_bands`` default)
+RGB_BANDS = (60, 42, 24)
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
@@ -52,6 +57,33 @@ def load_library(library_path: str, active):
     (reference: robust_mf.py:237-238)."""
     libdata = np.loadtxt(library_path).astype(np.float64)
     return libdata[active[0] - 1: active[1], 2]
+
+
+def preload_slabs(infile: str, library: str):
+    """The CMF's input slabs, to be filled by another stream's read of
+    ``infile`` (the masks' line blocks) and handed back to
+    :func:`robust_mf_image` as ``preloaded``, with the default
+    ``rgb_bands``.
+
+    Returns ``(tap, tap_bands, preloaded)``: ``tap(r0, r1, block, pos)``
+    copies lines [r0, r1) of the active window and the RGB bands out of
+    ``block`` (rows, samples, n), whose band ``b`` sits at ``pos[b]`` of
+    its last axis; ``tap_bands`` lists the bands the block must hold;
+    ``preloaded`` is the ``(active_slab, rgb_slab)`` pair the taps fill."""
+    img = envi_io.open_envi(infile)
+    a0, a1 = active_range_for_library(library)
+    a0 -= 1
+    slab = np.empty((img.nrows, img.ncols, a1 - a0), np.float32)
+    rgb = np.empty((img.nrows, img.ncols, len(RGB_BANDS)), np.float32)
+
+    def tap(r0, r1, blk, pos):
+        # the active range is a contiguous run of the union band list, so
+        # its positions are consecutive
+        p0 = pos[a0]
+        slab[r0:r1] = blk[:, :, p0:p0 + (a1 - a0)]
+        rgb[r0:r1] = blk[:, :, [pos[b] for b in RGB_BANDS]]
+
+    return tap, list(range(a0, a1)) + list(RGB_BANDS), (slab, rgb)
 
 
 _BAND_NAMES_4 = ["Red Radiance (uW/nm/sr/cm2)",
@@ -93,7 +125,7 @@ def robust_mf_image(infile: str, library: str, outfile: str,
                     model: str = "looshrinkage", bgmodes: int = 1,
                     pcadim: int = 6, reject: bool = False,
                     regfull: bool = False,
-                    reflectance: bool = False, rgb_bands=(60, 42, 24),
+                    reflectance: bool = False, rgb_bands=RGB_BANDS,
                     save_bgmeta: bool = False, col_chunk: int = 256,
                     dtype=np.float32, verbose: bool = False,
                     cond_thresh: float = 1e-6, preloaded=None,
@@ -115,7 +147,8 @@ def robust_mf_image(infile: str, library: str, outfile: str,
     use is recomputed through the whole multimodal path in float64.
     ``preloaded``: optional ``(active_slab, rgb_slab)`` already in RAM —
     ``active_slab`` (lines, samples, active_bands) and ``rgb_slab``
-    (lines, samples, 3); skips every disk read of the cube.
+    (lines, samples, 3), as :func:`preload_slabs` fills them; skips every
+    disk read of the cube.
     ``device``: "cuda" (default; raises without a card) or "cpu".
 
     Spans (:mod:`srcfinder_torch.trace`): "cmf.read" (the window and RGB

@@ -9,11 +9,11 @@ Supports BIL/BIP/BSQ interleaves, all standard ENVI data types, header
 round-tripping and creation of writable output images. The streaming
 reads (line blocks, band windows, band subsets, whole cubes, one band)
 go through :class:`.directio.DirectFile`, as in the JAX package: one
-contiguous extent per line, or per run of adjacent bands per line, read
-with buffered ``pread`` (O_DIRECT with ``SRCFINDER_DIRECT_IO=1``). What it does not cover (header offsets that are not a
-multiple of the sample size, band subsets of BIP and BSQ sources) reads
-through a numpy memmap of the raw file. The caller moves what it reads
-to the device.
+contiguous extent per line, or per run of adjacent bands per line,
+copied out of a read-only mapping of the file. What it does not cover
+(header offsets that are not a multiple of the sample size, band subsets
+of BIP and BSQ sources) reads through a numpy memmap of the raw file.
+The caller moves what it reads to the device.
 """
 
 from __future__ import annotations

@@ -34,7 +34,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from ..cmf.pipeline import active_range_for_library, robust_mf_image
+from ..cmf.pipeline import preload_slabs, robust_mf_image
 from ..core import envi as envi_io
 from ..core.geo import mapinfo
 from ..detect.fcn_pipeline import fcn_saliency_image, load_saliency_model
@@ -80,11 +80,7 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
                    dtype="float32", fcn_dtype="float32", bgmodes: int = 1,
                    col_chunk: int = 256, progress=print, device="cuda"):
     """Run all stages for one flightline; returns a dict of products
-    (paths) plus ``timers``, ``spans`` and, after a fused stage, "read+masks
-    parts" (seconds of the disk reads, the slab taps, the pixel tests, the
-    growth and buffer (labelling on the host, dilations on the device)
-    and the block waits; the reads and taps run in a reader
-    thread beside the rest).
+    (paths) plus ``timers`` and ``spans``.
 
     ``timers``: seconds of each stage run ("cmf", "masks", "fcn",
     "salience", "ime", "msf-flow"; the fused "cmf+masks (fused single-pass
@@ -137,32 +133,16 @@ def run_flightline(radiance: str, library: str, weights: str, outdir: str,
 
         if need_cmf and need_masks:
             with Stage("cmf+masks (fused single-pass read)", timers, progress, dev):
-                rdn = envi_io.open_envi(radiance)
-                a0, a1 = active_range_for_library(library)
-                a0 -= 1
-                rgb_bands = (60, 42, 24)
-                slab = np.empty((rdn.nrows, rdn.ncols, a1 - a0), np.float32)
-                rgb = np.empty((rdn.nrows, rdn.ncols, 3), np.float32)
-
-                def tap(r0, r1, blk, pos):
-                    # the active range is a contiguous run of the union band
-                    # list, so its positions are consecutive
-                    p0 = pos[a0]
-                    slab[r0:r1] = blk[:, :, p0:p0 + (a1 - a0)]
-                    rgb[r0:r1] = blk[:, :, [pos[b] for b in rgb_bands]]
-
-                products["read+masks parts"] = parts = {}
+                tap, tap_bands, preloaded = preload_slabs(radiance, library)
                 with span("read+masks") as phase:
                     masks_for_flightline(radiance, outdir, out_name=mskname + ".part",
-                                         device=dev, tap=tap,
-                                         tap_bands=list(range(a0, a1)) + list(rgb_bands),
-                                         timers=parts)
+                                         device=dev, tap=tap, tap_bands=tap_bands)
                 timers["read+masks"] = phase.seconds
                 progress(f"[PHASE] read+masks done in {timers['read+masks']:.1f}s")
                 with span("cmf phase") as phase:
                     robust_mf_image(radiance, library, cmff + ".part", bgmodes=bgmodes,
                                     dtype=np.dtype(dtype).type, col_chunk=col_chunk,
-                                    rgb_bands=rgb_bands, preloaded=(slab, rgb), device=dev)
+                                    preloaded=preloaded, device=dev)
                 timers["cmf phase"] = phase.seconds
                 progress(f"[PHASE] cmf done in {timers['cmf phase']:.1f}s")
                 _finalize((mskf + ".part", mskf), (cmff + ".part", cmff))

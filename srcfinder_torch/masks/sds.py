@@ -25,7 +25,6 @@ Behaviour kept from the JAX package:
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -176,8 +175,7 @@ def masks_for_cube(read_block=None, nrows: int = None, ncols: int = None,
                    wavelengths=None, params: MaskParams = MaskParams(),
                    maskgrowradius_px: float = None, mingrowarea=None,
                    cldbfr_px: float = 0.0, block_step: int = 500,
-                   nodata_row0=None, read_block_bands=None, device="cuda",
-                   timers=None):
+                   nodata_row0=None, read_block_bands=None, device="cuda"):
     """Stream a flightline in line blocks and assemble the 4-band mask
     (reference: masks_sds.py:284-348). Returns (rows, cols, 4) int16:
     [cloud (buffered), specular, flare, dark].
@@ -192,12 +190,8 @@ def masks_for_cube(read_block=None, nrows: int = None, ncols: int = None,
     trip no test. ``nodata_row0``: a bool map, or a callable evaluated
     after the streaming loop, of the pixels stamped -9999.
     ``device``: "cuda" (default; raises without a card) or "cpu".
-    ``timers``: optional dict that receives the seconds of the pixel tests
-    (to their maps on the host), of the growth and buffer, and of
-    the waits for the next block ("pixel tests", "growth", "wait").
     """
     dev = resolve_device(device)
-    clock = {"pixel tests": 0.0, "growth": 0.0, "wait": 0.0}
     wl_full = np.asarray(wavelengths, np.float32)
     need = needed_bands(wl_full, params)
     params = _compact_params(params, need)
@@ -230,18 +224,13 @@ def masks_for_cube(read_block=None, nrows: int = None, ncols: int = None,
             params.vis_grow_threshold)
         return blk
 
-    t_wait = time.perf_counter()
     for bi, blk in BlockPrefetcher(_read, len(starts), device=dev):
-        t_tests = time.perf_counter()
-        clock["wait"] += t_tests - t_wait
         vis_veto = vetoes.pop(bi)
         r0 = starts[bi]
         r1 = min(nrows, r0 + block_length)
         with span("masks.tests"):
             sat, cloud, spec, dark = (m[: r1 - r0].cpu().numpy()
                                       for m in pixel_masks(blk, wl, params))
-        t_grow = time.perf_counter()
-        clock["pixel tests"] += t_grow - t_tests
         spec_full[r0:r1][spec] = 1
         cloud_full[r0:r1][cloud] = 1
         dark_full[r0:r1][dark] = 1
@@ -251,17 +240,12 @@ def masks_for_cube(read_block=None, nrows: int = None, ncols: int = None,
                 fl = grow_flare_mask(sat, spec, vis_veto, maskgrowradius_px, mingrowarea,
                                      device=dev)
             flare_full[r0:r1] = np.maximum(flare_full[r0:r1], fl)
-        t_wait = time.perf_counter()
-        clock["growth"] += t_wait - t_grow
 
     if cldbfr_px:
         with span("masks.buffer"):
             cloud_buf = dilate_mask(cloud_full, cldbfr_px, device=dev)
     else:
         cloud_buf = cloud_full.astype(bool)
-    clock["growth"] += time.perf_counter() - t_wait
-    if timers is not None:
-        timers.update(clock)
 
     out = np.zeros((nrows, ncols, 4), np.int16)
     out[..., 0] = cloud_buf
