@@ -11,8 +11,8 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    spills (ptxas -v) and count the tensor-core instructions (HMMA,
    HGMMA, DMMA) in the SASS of each kernel of the built libraries
    (cuobjdump); the trunk library must have some, P2's bf16 front kernel
-   (front_kernel<bf16>) HGMMA, both f32 instances of the 3xTF32 conv
-   (conv_tf32x3_kernel<float, 64 and 128>) HGMMA, every width of the bf16
+   (front_kernel<bf16>) HGMMA, every width of the f32 conv as 3xTF32
+   (conv_tf32x3_kernel<float, 16 .. 128>) HGMMA, every width of the bf16
    conv (conv_wgmma_kernel<bf16, 32 .. 256>) HGMMA, and the f64 LOOCV
    kernel (loo_kernel<double>) DMMA.
 2. The convolutions one by one: every distinct conv trunk_s23 and
@@ -28,8 +28,9 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    TFLOP/s, the bound (f32 as 3xTF32, beside the FMA pipes' bound), the
    share of it, and the tile width the dispatch picked for each (it must
    be the tensor-core kernel's, as tensor_core_ok says, at the width
-   trunk_fuse.conv_tile_width gives: bf16 one column tile wherever cout
-   <= 256; each bf16 launch counted by trunk_fuse.conv_launches). Then
+   trunk_fuse.conv_tile_width gives: one column tile wherever cout <= 256
+   in bf16, <= 128 in f32; each launch counted under its dtype and width by
+   trunk_fuse.conv_launches). Then
    trunk_s45 on 3 windows, whose last blocks end in a ragged row tile, and
    P2's layers one by one (front kernel, conv3, pool2: device ms of each
    in a profiled call at 512 windows in f32 and bf16 and at 4096 in bf16,
@@ -391,9 +392,9 @@ TRUNK_SIDES = {"fused_stage12": WIN, "trunk_s23": WIN // 2, "trunk_s3": WIN // 8
 STAGE12_SMALL = (40, 64, 256)
 
 
-def plan_conv_launches(counts):
-    """{tile width: bf16 conv launches} that the trunk entry-point calls
-    ``counts`` ({entry point: calls}) make on WIN windows: each call
+def plan_conv_launches(counts, dtype):
+    """{tile width: conv launches} in ``dtype`` that the trunk entry-point
+    calls ``counts`` ({entry point: calls}) make on WIN windows: each call
     launches every conv of its conv_plan once, at the width
     trunk_fuse.conv_tile_width gives."""
     from srcfinder_torch.ops import trunk_fuse as tf
@@ -402,7 +403,7 @@ def plan_conv_launches(counts):
         if not n:
             continue
         for c in tf.conv_plan(k, TRUNK_SIDES[k]):
-            w = tf.conv_tile_width(c.cout)
+            w = tf.conv_tile_width(c.cout, dtype)
             want[w] = want.get(w, 0) + n
     return want
 
@@ -877,12 +878,13 @@ def phase_conv_shapes():
     dispatch picked (trunk_fuse.conv_tile) with its column tiles, and the
     bound (trunk_bound) with the share of it. Each must go to the
     tensor-core kernel of its dtype as trunk_fuse.tensor_core_ok says, at
-    the tile width trunk_fuse.conv_tile_width gives, each bf16 launch
-    counted under that width by trunk_fuse.conv_launches (no f32 one),
+    the tile width trunk_fuse.conv_tile_width gives, each launch counted
+    under its dtype and that width by trunk_fuse.conv_launches,
     stay within TRUNK_TOL, give the same bits on a second launch and leave
     every channel it does not own NaN. f32 rows also hold the kernel's and
     cuDNN-f32's (the plain conv's) errors against the conv in f64 on their
-    first F64_WINDOWS windows."""
+    first F64_WINDOWS windows. The f32 kernel's weight split of the largest
+    f32 conv must equal trunk_fuse.split_tf32's bit for bit."""
     import torch
     from srcfinder_torch.device import resolve_device
     from srcfinder_torch.ops import trunk_fuse as tf
@@ -913,6 +915,11 @@ def phase_conv_shapes():
         with torch.no_grad():
             got, ref = tf.trunk_s45(x45, p45), tf.trunk_s45_ref(x45, p45)
         ragged[dname] = max_abs_diff(got, ref) / ref.float().abs().max().item()
+    # the f32 conv's weight split (conv_tf32x3_kernel_split) of the largest
+    # f32 conv above, against its plain version (trunk_fuse.split_tf32)
+    split = _split_row(tf, gen, max((c for name, side in cases[1][2]
+                                     for c in tf.conv_plan(name, side)),
+                                    key=lambda c: c.k * c.k * c.cin * c.cout))
     # a conv the rule refuses (6 input channels: a 16-byte vector of 4 f32
     # would cross a tap): no kernel takes it, so the wrapper raises
     x6, k6 = torch.ones(1, 4, 4, 6, device="cuda"), torch.ones(6, 8, device="cuda")
@@ -924,13 +931,37 @@ def phase_conv_shapes():
         refused["raised"] = True
     torch.cuda.synchronize()
     print(json.dumps({"conv_shapes": rows, "tol": TRUNK_TOL,
-                      "trunk_s45_b3_max_rel_err": ragged, "refused_f32_cin6": refused}))
+                      "trunk_s45_b3_max_rel_err": ragged, "refused_f32_cin6": refused,
+                      "f32_weight_split": split}))
+    if not split["bit_identical"]:
+        fail(f"the f32 conv's weight split of {split['conv']} differs from split_tf32")
     if refused != dict(tile=0, raised=True):
         fail(f"an f32 conv of 6 input channels: {refused}, expected tile 0 and a raise")
     for dname, rel in ragged.items():
         if not rel <= TRUNK_TOL[dname]:
             fail(f"trunk_s45 on 3 windows in {dname}: relative error {rel:.3g}")
     return rows
+
+
+def _split_row(tf, gen, c):
+    """The f32 conv kernel's weight split (conv_tf32x3_kernel_split) of
+    conv ``c`` (a ConvLaunch) at one window, hi and lo in a NaN-filled
+    scratch, against trunk_fuse.split_tf32 bit for bit."""
+    import torch
+    ks = (c.cin, c.cout) if c.k == 1 else (c.k, c.k, c.cin, c.cout)
+    k = torch.randn(ks, generator=gen, device="cuda") * (c.k * c.k * c.cin) ** -0.5
+    x = torch.randn(1, c.side, c.side, c.cin, generator=gen, device="cuda")
+    b = torch.zeros(1, c.cout, device="cuda")
+    ho = (c.side + 2 * c.pad - c.k) // c.stride + 1
+    y = torch.empty(1, ho, ho, c.cout, device="cuda")
+    split = torch.full((2 * k.numel(),), float("nan"), device="cuda")
+    tf.KERNEL.launch("srcf_conv_f32", *tf._conv_args(x, k, b, y, None, c.stride, c.pad),
+                     split.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    hi, lo = tf.split_tf32(k)
+    same = torch.equal(split.view(2, c.cout, -1).view(torch.int32),
+                       torch.stack([hi, lo]).view(torch.int32))
+    return dict(conv=c.layer, weights=k.numel(), bit_identical=same)
 
 
 def _conv_shape_row(tf, gen, tag, c, n, dtype):
@@ -957,13 +988,13 @@ def _conv_shape_row(tf, gen, tag, c, n, dtype):
     if not tf.tensor_core_ok(c, dtype):
         fail(f"{tag}: outside the tensor-core kernel's dispatch rule")
     tile = tf.conv_tile(x, k, b, y0, y1, c.stride, c.pad)
-    # the rule's tile width (trunk_fuse.conv_tile_width): f32 the one of 64
-    # and 128 that pads cout less, bf16 the fewest tiles of <= 256 channels
+    # the rule's tile width (trunk_fuse.conv_tile_width): the fewest tiles of
+    # <= 256 channels in bf16, <= 128 in f32
     want_tile = tf.conv_tile_width(c.cout, dtype)
     if tile != want_tile:
         fail(f"{tag}: the dispatch picked tile {tile}, not the tensor-core kernel's "
              f"{want_tile}")
-    before = tf.conv_launches()
+    before = tf.conv_launches(dtype)
     run()
     torch.cuda.synchronize()
     got = y0 if y1 is None else torch.cat([y0, y1], dim=3)
@@ -971,8 +1002,8 @@ def _conv_shape_row(tf, gen, tag, c, n, dtype):
     again = y0 if y1 is None else torch.cat([y0, y1], dim=3)
     same = torch.equal(got, again)
     del again
-    counted = tf.conv_launches().get(tile, 0) - before.get(tile, 0)
-    if counted != (0 if f32 else 2):
+    counted = tf.conv_launches(dtype).get(tile, 0) - before.get(tile, 0)
+    if counted != 2:
         fail(f"{tag}: conv_launches counted {counted} launches at width {tile} for two "
              f"{'f32' if f32 else 'bf16'} convs")
     row = dict(conv=tag, windows=n, side=c.side, cin=c.cin, cout=c.cout, k=c.k, tile=tile,
@@ -1051,7 +1082,7 @@ def stage12_layers():
     from srcfinder_torch.ops import trunk_fuse as tf
     gen = torch.Generator(device="cuda").manual_seed(1212)
     family = {"front": ("front_kernel",),
-              "conv3": ("conv_wgmma_kernel", "conv_tf32x3_kernel"),
+              "conv3": ("conv_wgmma_kernel", "conv_tf32x3_kernel", "conv_tf32x3_kernel_split"),
               "pool2": ("maxpool_kernel",)}
     out = {}
     for dname, n in TRUNK_CONFIGS:
@@ -2738,7 +2769,9 @@ def branch4_ms(events):
     """Device ms of the trunk kernels' inception branch 4 (its 3x3/1 pool
     and the 1x1 after it) in time-ordered device ``events``: each block
     launches conv (wide 1x1), conv, conv, pool, conv, and no other pool
-    of the trunk follows three convs."""
+    of the trunk follows three convs (an f32 conv's weight split, launched
+    just before it, is left out of the sequence)."""
+    events = [e for e in events if "conv_tf32x3_kernel_split" not in e.name]
     kind = ["conv" if re.search(r"conv_(wgmma|tf32x3)_kernel", e.name)
             else "pool" if "maxpool_kernel" in e.name else "" for e in events]
     return sum(events[i].time_range.elapsed_us() + events[i + 1].time_range.elapsed_us()
@@ -2750,6 +2783,7 @@ def branch4_ms(events):
 # device functions by family: the first pattern a name matches; cuDNN's
 # convolutions and its layout transposes are "cudnn_conv"
 KERNEL_FAMILIES = (("front_kernel", r"front_kernel"), ("conv_wgmma_kernel", r"conv_wgmma_kernel"),
+                   ("conv_tf32x3_kernel_split", r"conv_tf32x3_kernel_split"),
                    ("conv_tf32x3_kernel", r"conv_tf32x3_kernel"),
                    ("maxpool_kernel", r"maxpool_kernel"),
                    ("gap_kernel", r"gap_kernel"),
@@ -3054,10 +3088,11 @@ def phase_exact_cnn(workdir, strip, wf):
     path), the other kernel route and the plain route in its
     configuration, each trunk route in f32, the segments route at the
     CLI's batch in f32, the fast method. Each run zeroes the trunk kernels'
-    launch counters just before and reads them just after; a bf16 kernel
-    route must have launched every conv of its segments' plans on
-    conv_wgmma_kernel at the rule's tile widths (trunk_fuse.conv_launches),
-    and both kernel routes' bf16 profiles must name that kernel. Returns
+    launch counters just before and reads them just after; a kernel route
+    must have launched every conv of its segments' plans on the conv
+    kernel of its dtype (conv_wgmma_kernel, conv_tf32x3_kernel) at the
+    rule's tile widths (trunk_fuse.conv_launches), and both kernel routes'
+    bf16 profiles must name conv_wgmma_kernel. Returns
     {kernel: (run, launches)} from the run of each kernel's path
     (kernel_run)."""
     import inspect
@@ -3114,7 +3149,8 @@ def phase_exact_cnn(workdir, strip, wf):
         torch.cuda.synchronize()
         s = time.time() - t0
         counts = {k: trunk_fuse.launches(k) for k in TRUNK_KERNELS}
-        convs = trunk_fuse.conv_launches()
+        convs = {d: trunk_fuse.conv_launches(getattr(torch, d))
+                 for d in ("bfloat16", "float32")}
         stats[tag] = dict(s=s, windows_per_s=n_win / s,
                           peak_mem_bytes=torch.cuda.max_memory_allocated(),
                           projected_full_scene_s=s * SCENE[0] / STRIP_LINES,
@@ -3123,12 +3159,14 @@ def phase_exact_cnn(workdir, strip, wf):
         if launched != sorted(ROUTE_KERNELS[trunk]):
             fail(f"{tag}: launched {launched}, trunk {trunk} launches "
                  f"{sorted(ROUTE_KERNELS[trunk])}")
-        # every bf16 conv of the route's segments on conv_wgmma_kernel, at
-        # the rule's widths; no f32 conv counted there
-        want = plan_conv_launches(counts) if "bf16" in tag else {}
+        # every conv of the route's segments on the conv kernel of its
+        # dtype, at the rule's widths; none in the other dtype
+        dname = "bfloat16" if "bf16" in tag else "float32"
+        want = {d: plan_conv_launches(counts, getattr(torch, d)) if d == dname else {}
+                for d in convs}
         if convs != want:
-            fail(f"{tag}: bf16 conv launches by tile width {convs}, its segments' plans "
-                 f"launch {want}")
+            fail(f"{tag}: conv launches by dtype and tile width {convs}, its segments' "
+                 f"plans launch {want}")
         return res
 
     rc = run(cli_tag, lambda: cnn_cli.main([strip, "-n", "1", "-w", wf, "-o", out]), default)
@@ -4537,8 +4575,9 @@ def trunk_times(tree):
     --trunk-times TREE`` times fused_stage12 (contiguous windows) of TREE's
     srcfinder_torch in each of TRUNK_CONFIGS, and trunk_s23, trunk_s3 and
     trunk_s45 in each of them too, on seeded windows, maps and weights
-    (identical in every call), each with its error against TREE's plain
-    version, and prints one JSON line. Run it on two trees in turns within
+    (identical in every call), each beside its bound (trunk_bound: f32 as
+    3xTF32) and with its error against TREE's plain version, and prints
+    one JSON line. Run it on two trees in turns within
     one call (old, new, new, old)."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -4665,10 +4704,10 @@ def main():
         fail("no HMMA/HGMMA instruction in the trunk library")
     if not sass["trunk"].get("front_kernel<bf16>", {}).get("HGMMA"):
         fail("no HGMMA instruction in P2's bf16 front kernel (front_kernel<bf16>)")
-    for tbn in (64, 128):
-        if not sass["trunk"].get(f"conv_tf32x3_kernel<float, {tbn}>", {}).get("HGMMA"):
-            fail(f"no HGMMA instruction in the f32 conv (conv_tf32x3_kernel<float, {tbn}>)")
-    for w in trunk_fuse.BF16_TILE_WIDTHS:
+    for w in trunk_fuse.TILE_WIDTHS[torch.float32]:
+        if not sass["trunk"].get(f"conv_tf32x3_kernel<float, {w}>", {}).get("HGMMA"):
+            fail(f"no HGMMA instruction in the f32 conv (conv_tf32x3_kernel<float, {w}>)")
+    for w in trunk_fuse.TILE_WIDTHS[torch.bfloat16]:
         if not sass["trunk"].get(f"conv_wgmma_kernel<bf16, {w}>", {}).get("HGMMA"):
             fail(f"no HGMMA instruction in the bf16 conv (conv_wgmma_kernel<bf16, {w}>)")
     if not sass["loo"].get("loo_kernel<double>", {}).get("DMMA"):

@@ -96,31 +96,37 @@
 //   each, took longer than the tile's wgmma), while the producer runs
 //   ahead into the next tile. No split-K, no atomics: repeats are
 //   bit-identical.
-// - conv_tf32x3_kernel (f32): the same GEMM view, block tile and epilogue
-//   on wgmma m64nBNk8 with tf32 operands, as 3xTF32. tf32 wgmma takes no
-//   transpose: both operands must be K-major in shared memory, and the HWIO
-//   weight rows are N-major. So the raw f32 slices (32 deep: one 128-byte
-//   swizzle row of f32) land by 16-byte cp.async, zero-filled as above, in a
-//   ring of 3 stages filled 3 slices ahead: A's im2col rows already K-major
-//   in the 128-byte swizzle, B's reduction rows as they are. One split pass
-//   a slice rounds every value v to hi = tf32(v) and lo = tf32(v - hi)
-//   (cvt.rna, low 13 bits cleared) and writes A's hi and lo tiles in place
-//   and B's transposed, K-major, all in the layout wgmma reads, into one of
-//   two split buffers: the pass over slice k + 1 runs while slice k's wgmma
-//   runs on the other. Each k8 step accumulates lo_a hi_b, then hi_a lo_b,
-//   then hi_a hi_b, small terms first, into a partial sum of the slice's
-//   own: the tensor cores round their accumulation toward zero, a bias that
-//   grows with the steps one accumulator takes, so the partials (12 steps
-//   each) are added into the f32 sum by FADD, rounding to nearest. A stays
-//   in shared memory, not registers: from registers each thread would hold
-//   two k-slices of hi and lo fragments beside its 128 accumulators while a
-//   wgmma reads them, and ptxas serialises wgmma when it cannot prove them
-//   untouched; from shared memory the wgmma loop is the bf16 kernel's. What
-//   bounds it: shared memory, which the three products read (A once a
-//   warpgroup, B twice a block) on top of the split pass's traffic: by
-//   byte count about 1.4x the tensor cores' time a slice at BN 128. 225 KB
-//   a block at BN 128 (169 KB at 64), one block an SM. No atomics: repeats
-//   are bit-identical.
+// - conv_tf32x3_kernel (f32): conv_wgmma_kernel's walk, ring, producer and
+//   epilogue (the same device functions, ring_init, conv_producer and
+//   conv_epilogue, on slices of one 128-byte swizzle row of either type) on
+//   wgmma m64nBNk8 with tf32 operands, as 3xTF32: each operand v rounded to
+//   hi = tf32(v) and lo = tf32(v - hi) (cvt.rna, low 13 bits cleared), and
+//   per k8 step lo_a hi_b, then hi_a lo_b, then hi_a hi_b, small terms
+//   first (lo_a lo_b, below 2^-22 of the product, dropped). tf32 wgmma
+//   takes no transpose, so B must be K-major, and the HWIO weight rows are
+//   N-major: conv_tf32x3_kernel_split splits the weights once a conv into
+//   hi and lo, each Cout rows of K*K*Cin, into scratch the caller
+//   gives (a segment one for all its convs, as large as its largest conv's
+//   pair: 5.3 MB in trunk_s45; stream order keeps a conv from reading what
+//   the next conv's split writes), and the producer brings both by TMA in
+//   boxes of BN rows x 32 (128-byte swizzle). A lands as loaded, in 32-deep
+//   slices (one 128-byte swizzle row of f32), by TMA (1x1) or cp.async;
+//   each consumer brings its 64 rows' fragments into registers by ldmatrix
+//   while the previous slice's wgmma runs, rounds them into hi and lo
+//   there, and runs the slice's 12 wgmma with A from registers: no split
+//   pass through shared memory, no block-wide barrier in the loop. The 12
+//   steps of a slice start a partial sum of their own: the tensor cores
+//   round their accumulation toward zero, a bias that grows with the steps
+//   one accumulator takes, so once a slice's wgmma have retired its
+//   partial is added into the f32 sum by FADD, rounding to nearest, before
+//   the next slice's are issued. A consumer thread holds the sum and the
+//   partial, BN registers, beside 32 of A's fragments, so the f32 tile
+//   stops at 128 channels (3 stages of 48 KB and two 33 KB epilogue tiles
+//   there). What bounds it: shared memory carries a slice's A and B in (16
+//   KB + 256 BN bytes), A out once to the registers (16 KB) and B three
+//   times to each consumer's wgmma (768 BN bytes): by byte count 0.83x the
+//   tensor cores' time a slice at BN 128, 1.0x at 64, 1.33x at 32. No
+//   split-K, no atomics: repeats are bit-identical.
 // - Dispatch (launch(), tc_ok(), tc_tile()): a conv goes to the tensor-core
 //   kernel of its dtype when Cin, Cout, the channel split and the input and
 //   output pixel strides are multiples of the 16-byte vector (8 bf16, 4
@@ -128,11 +134,13 @@
 //   vector never crosses a (ky, kx) tap; every conv of
 //   trunk_s23/trunk_s3/trunk_s45 and P2's conv3 meets it in both dtypes
 //   (every channel count, offset and stride is a multiple of 8); P2's conv1
-//   and conv2 run inside front_kernel. The tile width: bf16 as above, f32
-//   the one of 64 and 128 that pads Cout less (128 on a tie). No kernel
-//   takes a conv the rule refuses: launch() returns an error for it, and
-//   the wrapper raises. The library counts the bf16 conv launches by tile
-//   width (srcf_conv_bf16_launches).
+//   and conv2 run inside front_kernel. The tile width, one rule for both:
+//   the fewest column tiles of at most 256 channels (bf16) or 128 (f32),
+//   each as wide as their share of Cout rounded up to a granule of 32 (bf16:
+//   half a B box) or 16 (f32). No kernel takes a conv the rule refuses:
+//   launch() returns an error for it, and the wrapper raises. The library
+//   counts the conv launches by dtype and tile width
+//   (srcf_conv_f32_launches, srcf_conv_bf16_launches).
 // - Epilogue of both: bias added and ReLU in f32, then one rounding to the
 //   storage type, where the Pallas kernels rounded. The output goes to a
 //   channel offset and pixel stride of the concatenated inception output
@@ -147,11 +155,9 @@
 //   (-inf padding): ceil-mode 3x3/2, 2x2/2 and branch 4's 3x3/1 pad 1. A
 //   thread reads and writes 16 bytes: 8 bf16 or 4 f32 channels.
 // - gap_kernel: mean over pixels in f32, then rounded to the storage type.
-// Not yet: the f32 kernel's feed (the same producer, TMA and persistent
-// tiles; weights split into hi and lo once, K-major, where each block
-// splits them again); B shared by a cluster of two blocks through TMA
-// multicast (it halves the weights' L2 reads, but a first try ran at half
-// speed); two blocks an SM for the narrow tiles; conv3 and pool2 inside
+// Not yet: B shared by a cluster of two blocks through TMA multicast (it
+// halves the weights' L2 reads, but a first try ran at half speed); two
+// blocks an SM for the narrow tiles of both convs; conv3 and pool2 inside
 // P2's front kernel (conv3's 64 -> 192 channels over a 10 x 10 halo of the
 // pooled tile would need 4x the pooled tile's shared memory); branch 4's
 // pool inside its 1x1.
@@ -207,15 +213,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
                "r"(valid ? 16 : 0) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // 128-byte swizzle, the layout wgmma reads: 16-byte chunk c of the
 // 128-byte row r at c ^ (r & 7), in 1024-byte atoms of 8 rows
 __device__ __forceinline__ uint32_t sw128(int r, int c) {
@@ -229,15 +226,10 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (1ull << 62);
 }
 
-// wgmma's accumulator operands: 32 f32 registers a thread at n64, 64 at n128
+// wgmma's accumulator operands at n64: 32 f32 registers a thread
 #define WG_D32                                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_D64                                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
-  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 #define WG_OUT32                                                                      \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
       "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),      \
@@ -245,13 +237,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
       "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
       "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),   \
       "+f"(d[31])
-#define WG_OUT64                                                                      \
-  WG_OUT32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),          \
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),   \
-      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),   \
-      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),   \
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),   \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
 // d (64 x N, f32) += A (64 x 16, K-major) * B (16 x N, N-major), bf16, one
 // warpgroup: scale-d 1 (accumulate), A and B not negated, B transposed
@@ -260,22 +245,6 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b
                "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
                ", %32, %33, p, 1, 1, 0, 1;\n}\n"
                : WG_OUT32 : "l"(a), "l"(b), "r"(1));
-}
-
-// d (64 x N, f32) = A (64 x 8, K-major) * B (8 x N, K-major) + (acc ? d : 0),
-// tf32, one warpgroup: A and B not negated (tf32 takes no transpose)
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_D32
-               ", %32, %33, p, 1, 1;\n}\n"
-               : WG_OUT32 : "l"(a), "l"(b), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_D64
-               ", %64, %65, p, 1, 1;\n}\n"
-               : WG_OUT64 : "l"(a), "l"(b), "r"(acc));
 }
 
 template <int N>
@@ -422,22 +391,179 @@ struct Cw {
 
 // A by TMA: a 1x1 conv of stride 1 reads pixel m's channels at x + m ldx,
 // a plain 2-D box of the map; every other conv builds im2col rows by cp.async
-__host__ __device__ inline bool a_by_tma(const Conv<bf16>& a) {
+template <typename T>
+__host__ __device__ inline bool a_by_tma(const Conv<T>& a) {
   return a.K == 1 && a.stride == 1 && a.pad == 0;
+}
+
+// ---- the warp-specialised convs' ring, producer and epilogue (both dtypes) -
+// conv_wgmma_kernel (bf16) and conv_tf32x3_kernel (f32) share them; a
+// slice of the reduction is one 128-byte swizzle row of T (64 bf16, 32 f32)
+
+// the ring's STAGES pairs of barriers, before any thread uses them: full
+// takes the TMA arrival (+ one a producer thread's cp.async), empty one
+// arrival a consumer warpgroup
+template <int STAGES>
+__device__ __forceinline__ void ring_init(uint32_t full0, uint32_t empty0, bool tma_a) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, tma_a ? 1 : 1 + CW_PRODUCER);
+      mbar_init(empty0 + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Warpgroup 0 of a warp-specialised conv, its registers lowered: walks the
+// block's output tiles of CW_BM pixels x BN channels as the consumers do
+// and puts each slice of a tile into the next stage of the ring (S::STAGES
+// of S::STAGE bytes, A's S::A_BYTES first, then B) once both consumers
+// have released it (empty barrier). Thread 0 expects the stage's bytes on
+// its full barrier, issues A's TMA for a 1x1 conv and B's through
+// load_b(B's address, n0, the slice's first k, full barrier); for the
+// other convs the 128 threads copy A's im2col rows by 16-byte cp.async, 8
+// rows each, zero-filled for the padding and the ragged edges.
+template <int BN, typename S, typename T, typename LoadB>
+__device__ __forceinline__ void conv_producer(const Conv<T>& a, const CUtensorMap* map_a,
+                                              uint32_t s0, uint32_t full0, uint32_t empty0,
+                                              LoadB load_b) {
+  constexpr int BK = 128 / sizeof(T), V = 16 / sizeof(T);
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(CW_PRODUCER_REGS));
+  const int tid = threadIdx.x;
+  const bool tma_a = a_by_tma(a);
+  if (tma_a && tid != 0) return;  // one thread issues every TMA of a 1x1 conv
+  const int tiles_n = (a.Cout + BN - 1) / BN;
+  const int64_t tiles = (a.M + CW_BM - 1) / CW_BM * tiles_n;
+  const int Kd = a.K * a.K * a.Cin;
+  const int KT = (Kd + BK - 1) / BK;
+  int s = 0;
+  uint32_t ph = 0;
+  // A by cp.async: this thread copies chunk ac (V channels) of rows
+  // ar0 + 16 i of each slice, all at one tap; a row's tap (0, 0)
+  // relative to x, and its (iy0, ix0) packed in 16 bits each
+  const int ac = tid & 7, ar0 = tid >> 3;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t m0 = t / tiles_n * CW_BM;
+    const int n0 = static_cast<int>(t % tiles_n) * BN;
+    int64_t row[8];
+    int org[8];
+    if (!tma_a) {
+      // output pixel (img, oy, ox) of row ar0 by division, of the next
+      // rows by steps of 16 pixels (M < 2^31)
+      int m = static_cast<int>(m0) + ar0;
+      int ox = m % a.Wo, oy = m / a.Wo % a.Ho, img = m / a.Wo / a.Ho;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        row[i] = 0;
+        org[i] = -(1 << 30);  // rows past M read nothing: iy0 far below 0
+        if (m < a.M) {
+          const int iy0 = oy * a.stride - a.pad, ix0 = ox * a.stride - a.pad;
+          row[i] = ((static_cast<int64_t>(img) * a.H + iy0) * a.W + ix0) * a.ldx;
+          org[i] = iy0 * 65536 + (ix0 & 0xFFFF);
+        }
+        m += 16;
+        for (ox += 16; ox >= a.Wo; ox -= a.Wo)
+          if (++oy == a.Ho) {
+            oy = 0;
+            ++img;
+          }
+      }
+    }
+    int k = ac * V, ci = k % a.Cin, kx = (k / a.Cin) % a.K, ky = (k / a.Cin) / a.K;
+    for (int kt = 0; kt < KT; ++kt) {
+      const uint32_t sa = s0 + s * S::STAGE, full = full0 + 8 * s;
+      mbar_wait(empty0 + 8 * s, ph ^ 1);  // both consumers are done with the stage
+      if (tid == 0) {
+        mbar_expect_tx(full, tma_a ? S::STAGE : S::STAGE - S::A_BYTES);
+        if (tma_a) tma_load(sa, map_a, kt * BK, static_cast<int>(m0), full);
+        load_b(sa + S::A_BYTES, n0, kt * BK, full);
+      }
+      if (!tma_a) {
+        const bool kv = k < Kd;
+        const int64_t tap = (static_cast<int64_t>(ky) * a.W + kx) * a.ldx + ci;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int iy = (org[i] >> 16) + ky, ix = static_cast<int16_t>(org[i] & 0xFFFF) + kx;
+          const bool v = kv && static_cast<unsigned>(iy) < static_cast<unsigned>(a.H) &&
+                         static_cast<unsigned>(ix) < static_cast<unsigned>(a.W);
+          cp_async16(sa + sw128(ar0 + 16 * i, ac), v ? a.x + row[i] + tap : a.x, v);
+        }
+        cp_async_arrive(full);
+        k += BK;
+        ci += BK;
+        while (ci >= a.Cin) {
+          ci -= a.Cin;
+          if (++kx == a.K) {
+            kx = 0;
+            ++ky;
+          }
+        }
+      }
+      if (++s == S::STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// two neighbouring channels into the epilogue tile, each rounded once
+__device__ __forceinline__ void store2(bf16* p, float u, float v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(u, v);
+}
+__device__ __forceinline__ void store2(float* p, float u, float v) {
+  *reinterpret_cast<float2*>(p) = make_float2(u, v);
+}
+
+// The end of a consumer warpgroup's tile (lt: the thread's index among
+// the consumers): bias, ReLU and the rounding to T into the warpgroup's
+// tile in shared memory (64 rows, LDT bytes apart), then out in 16-byte
+// chunks, a row's chunks on neighbouring threads, to the channel offset
+// and split; the stores drain while the next tile's wgmma runs.
+// Accumulator j of 8 columns holds rows (lane >> 2) + 8 hf of the warp's
+// 16, columns 2 (lane & 3) + {0, 1}.
+template <int BN, int LDT, typename T>
+__device__ __forceinline__ void conv_epilogue(const Conv<T>& a, const float (&acc)[BN / 2],
+                                              unsigned char* tile, int64_t m0, int n0,
+                                              int lt) {
+  constexpr int V = 16 / sizeof(T), ES = sizeof(T);
+  const int wgc = lt >> 7, warp = (lt >> 5) & 3, lane = lt & 31;
+  named_sync(1 + wgc);  // the warpgroup is done reading the previous tile
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = j * 8 + (lane & 3) * 2, n = n0 + c;
+    const float b0 = n < a.Cout ? to_f(a.b[n]) : 0.f;
+    const float b1 = n < a.Cout ? to_f(a.b[n + 1]) : 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = warp * 16 + (lane >> 2) + 8 * hf;
+      store2(reinterpret_cast<T*>(tile + r * LDT + c * ES),
+             fmaxf(acc[4 * j + 2 * hf] + b0, 0.f), fmaxf(acc[4 * j + 2 * hf + 1] + b1, 0.f));
+    }
+  }
+  named_sync(1 + wgc);
+#pragma unroll
+  for (int e = lt & 127; e < 64 * (BN / V); e += 128) {
+    const int r = e / (BN / V), n = n0 + e % (BN / V) * V;
+    const int64_t m = m0 + wgc * 64 + r;
+    if (m >= a.M || n >= a.Cout) continue;
+    T* y = n < a.split ? a.y0 + m * a.ldy0 + n : a.y1 + m * a.ldy1 + (n - a.split);
+    *reinterpret_cast<uint4*>(y) = *reinterpret_cast<const uint4*>(tile + r * LDT + (n - n0) * ES);
+  }
 }
 
 // One persistent block an SM walks output tiles of 128 pixels x BN
 // channels, m-major (the column tiles of one m tile adjacent).
-// Warpgroup 0 produces: each 64-deep slice of a tile into the next stage
-// of the ring once both consumers have released it (empty barrier): B's
-// 64-channel boxes by TMA, A by TMA (1x1) or by 16-byte cp.async of its
-// thread's 8 rows, zero-filled for the padding and the ragged edges; the
-// stage's full barrier completes when every byte has landed. Warpgroups 1
-// and 2 consume: each runs wgmma on its 64 rows of a slice once it is
-// full, releases the stage when that wgmma has retired (one group in
-// flight behind the one issued), and ends a tile with bias, ReLU and one
-// rounding to bf16 through its epilogue tile, while the producer runs on
-// into the next tile's slices.
+// Warpgroup 0 produces (conv_producer): each 64-deep slice of a tile into
+// the next stage of the ring, B's 64-channel boxes by TMA, A by TMA (1x1)
+// or by cp.async; the stage's full barrier completes when every byte has
+// landed. Warpgroups 1 and 2 consume: each runs wgmma on its 64 rows of a
+// slice once it is full, releases the stage when that wgmma has retired
+// (one group in flight behind the one issued), and ends a tile with bias,
+// ReLU and one rounding to bf16 through its epilogue tile
+// (conv_epilogue), while the producer runs on into the next tile's slices.
 template <int BN>
 __global__ void __launch_bounds__(CW_THREADS, 1)
     conv_wgmma_kernel(const Conv<bf16> a, const __grid_constant__ CUtensorMap map_a,
@@ -453,94 +579,19 @@ __global__ void __launch_bounds__(CW_THREADS, 1)
   const int64_t tiles = (a.M + CW_BM - 1) / CW_BM * tiles_n;
   const int Kd = a.K * a.K * a.Cin;
   const int KT = (Kd + CW_BK - 1) / CW_BK;
-  if (tid == 0) {
-    for (int s = 0; s < S::STAGES; ++s) {
-      // full: the TMA arrival (+ one a producer thread's cp.async); empty: a consumer each
-      mbar_init(full0 + 8 * s, tma_a ? 1 : 1 + CW_PRODUCER);
-      mbar_init(empty0 + 8 * s, 2);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  ring_init<S::STAGES>(full0, empty0, tma_a);
 
   if (tid < CW_PRODUCER) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(CW_PRODUCER_REGS));
-    if (tma_a && tid != 0) return;  // one thread issues every TMA of a 1x1 conv
-    int s = 0;
-    uint32_t ph = 0;
-    // A by cp.async: this thread copies chunk ac (8 channels) of rows
-    // ar0 + 16 i of each slice, all at one tap; a row's tap (0, 0)
-    // relative to x, and its (iy0, ix0) packed in 16 bits each
-    const int ac = tid & 7, ar0 = tid >> 3;
-    for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int64_t m0 = t / tiles_n * CW_BM;
-      const int n0 = static_cast<int>(t % tiles_n) * BN;
-      int64_t row[8];
-      int org[8];
-      if (!tma_a) {
-        // output pixel (img, oy, ox) of row ar0 by division, of the next
-        // rows by steps of 16 pixels (M < 2^31)
-        int m = static_cast<int>(m0) + ar0;
-        int ox = m % a.Wo, oy = m / a.Wo % a.Ho, img = m / a.Wo / a.Ho;
+    // B: the HWIO weights in boxes of 64 channels x 64 rows
+    conv_producer<BN, S>(a, &map_a, s0, full0, empty0,
+                         [&](uint32_t sb, int n0, int k0, uint32_t full) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          row[i] = 0;
-          org[i] = -(1 << 30);  // rows past M read nothing: iy0 far below 0
-          if (m < a.M) {
-            const int iy0 = oy * a.stride - a.pad, ix0 = ox * a.stride - a.pad;
-            row[i] = ((static_cast<int64_t>(img) * a.H + iy0) * a.W + ix0) * a.ldx;
-            org[i] = iy0 * 65536 + (ix0 & 0xFFFF);
-          }
-          m += 16;
-          for (ox += 16; ox >= a.Wo; ox -= a.Wo)
-            if (++oy == a.Ho) {
-              oy = 0;
-              ++img;
-            }
-        }
-      }
-      int k = ac * 8, ci = k % a.Cin, kx = (k / a.Cin) % a.K, ky = (k / a.Cin) / a.K;
-      for (int kt = 0; kt < KT; ++kt) {
-        const uint32_t sa = s0 + s * S::STAGE, sb = sa + S::A_BYTES, full = full0 + 8 * s;
-        mbar_wait(empty0 + 8 * s, ph ^ 1);  // both consumers are done with the stage
-        if (tid == 0) {
-          mbar_expect_tx(full, tma_a ? S::A_BYTES + S::B_BYTES : S::B_BYTES);
-          if (tma_a) tma_load(sa, &map_a, kt * CW_BK, static_cast<int>(m0), full);
-#pragma unroll
-          for (int i = 0; i < (BN + CW_BOX - 1) / CW_BOX; ++i)
-            tma_load(sb + i * S::BOX_BYTES, &map_b, n0 + i * CW_BOX, kt * CW_BK, full);
-        }
-        if (!tma_a) {
-          const bool kv = k < Kd;
-          const int64_t tap = (static_cast<int64_t>(ky) * a.W + kx) * a.ldx + ci;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int iy = (org[i] >> 16) + ky, ix = static_cast<int16_t>(org[i] & 0xFFFF) + kx;
-            const bool v = kv && static_cast<unsigned>(iy) < static_cast<unsigned>(a.H) &&
-                           static_cast<unsigned>(ix) < static_cast<unsigned>(a.W);
-            cp_async16(sa + sw128(ar0 + 16 * i, ac), v ? a.x + row[i] + tap : a.x, v);
-          }
-          cp_async_arrive(full);
-          k += CW_BK;
-          ci += CW_BK;
-          while (ci >= a.Cin) {
-            ci -= a.Cin;
-            if (++kx == a.K) {
-              kx = 0;
-              ++ky;
-            }
-          }
-        }
-        if (++s == S::STAGES) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+                           for (int i = 0; i < (BN + CW_BOX - 1) / CW_BOX; ++i)
+                             tma_load(sb + i * S::BOX_BYTES, &map_b, n0 + i * CW_BOX, k0, full);
+                         });
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CW_CONSUMER_REGS));
-    const int lt = tid - CW_PRODUCER, wgc = lt >> 7, warp = (lt >> 5) & 3, lane = lt & 31;
+    const int lt = tid - CW_PRODUCER, wgc = lt >> 7;
     const bool leader = (lt & 127) == 0;  // arrives for its warpgroup
     int s = 0, prev = 0;
     uint32_t ph = 0;
@@ -580,63 +631,35 @@ __global__ void __launch_bounds__(CW_THREADS, 1)
       fence_acc(acc);
       if (leader) mbar_arrive(empty0 + 8 * prev);
 
-      // epilogue: bias, ReLU and the rounding into this warpgroup's tile in
-      // shared memory, then out in 16-byte chunks of 8 channels, a row's
-      // chunks on neighbouring threads; the stores drain while the next
-      // tile's wgmma runs. Accumulator j of 8 columns holds rows
-      // (lane >> 2) + 8 hf of the warp's 16, columns 2 (lane & 3) + {0, 1}.
-      unsigned char* tile = smem_raw + (tile0 + wgc * S::TILE - smem_u32(smem_raw));
-      named_sync(1 + wgc);  // the warpgroup is done reading the previous tile
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int c = j * 8 + (lane & 3) * 2, n = n0 + c;
-        const float b0 = n < a.Cout ? __bfloat162float(a.b[n]) : 0.f;
-        const float b1 = n < a.Cout ? __bfloat162float(a.b[n + 1]) : 0.f;
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int r = warp * 16 + (lane >> 2) + 8 * hf;
-          *reinterpret_cast<__nv_bfloat162*>(tile + r * S::LDT + c * 2) =
-              __floats2bfloat162_rn(fmaxf(acc[4 * j + 2 * hf] + b0, 0.f),
-                                    fmaxf(acc[4 * j + 2 * hf + 1] + b1, 0.f));
-        }
-      }
-      named_sync(1 + wgc);
-#pragma unroll
-      for (int e = lt & 127; e < 64 * (BN / 8); e += 128) {
-        const int r = e / (BN / 8), n = n0 + e % (BN / 8) * 8;
-        const int64_t m = m0 + wgc * 64 + r;
-        if (m >= a.M || n >= a.Cout) continue;
-        bf16* y = n < a.split ? a.y0 + m * a.ldy0 + n : a.y1 + m * a.ldy1 + (n - a.split);
-        *reinterpret_cast<uint4*>(y) =
-            *reinterpret_cast<const uint4*>(tile + r * S::LDT + (n - n0) * 2);
-      }
+      conv_epilogue<BN, S::LDT>(
+          a, acc, smem_raw + (tile0 + wgc * S::TILE - smem_u32(smem_raw)), m0, n0, lt);
     }
   }
 }
 
-// ---- tensor-core implicit GEMM (f32 as 3xTF32, wgmma) -----------------------
+// ---- warp-specialised f32 conv as 3xTF32: weights split once, persistent ---
 
-constexpr int TF_BM = 128;       // output pixels per block: 64 per warpgroup
-constexpr int TF_BK = 32;        // reduction slice: one 128-byte swizzle row of f32
-constexpr int TF_STAGES = 3;     // raw cp.async ring, filled TF_STAGES slices ahead
-constexpr int TF_THREADS = 256;  // two warpgroups
+constexpr int TF_BK = 32;          // reduction slice: one 128-byte swizzle row of f32
+constexpr int TF_GRANULE = 16;     // f32 tile widths: multiples of 16 channels up to 128
+constexpr int TF_TILE_MAX = 128;
 
-template <int TBN>
+template <int BN>
 struct Tf {
-  static constexpr int A_BYTES = TF_BM * TF_BK * 4;
-  static constexpr int B_BYTES = TF_BK * TBN * 4;
-  // a raw stage: A's im2col rows (K-major, swizzled), B's reduction rows
-  static constexpr int RAW_BYTES = A_BYTES + B_BYTES;
-  // a split buffer: A hi, A lo, B hi, B lo, all K-major and swizzled
-  static constexpr int SPLIT_BYTES = 2 * RAW_BYTES;
-  static constexpr int SPLIT0 = TF_STAGES * RAW_BYTES;  // the two split buffers
-  static constexpr int SMEM = SPLIT0 + 2 * SPLIT_BYTES + 1024;  // + aligning
-  static constexpr int A_ROWS = TF_BM * (TF_BK / 4) / TF_THREADS;  // rows a thread stages
-  static constexpr int B_STEP = TF_THREADS / (TBN / 4);  // rows between a thread's B chunks
-  static constexpr int B_CHUNKS = TF_BK / B_STEP;        // B chunks a thread stages
-  static constexpr int LDT = TBN * 4 + 16;               // epilogue tile row in bytes
-  static_assert(SMEM <= 232448, "a block may use 227 KB of shared memory");
-  static_assert(TF_BM * LDT <= SPLIT0, "the epilogue tile must fit over the ring");
+  static constexpr int A_BYTES = CW_BM * TF_BK * 4;  // 128 im2col rows of 128 B, as loaded
+  static constexpr int B_BYTES = BN * TF_BK * 4;     // BN rows of 128 B: B's hi or its lo
+  static constexpr int STAGE = A_BYTES + 2 * B_BYTES;  // a multiple of 1 KB
+  // a consumer's epilogue tile: 64 rows of BN f32, padded by 16 B against
+  // bank conflicts
+  static constexpr int LDT = BN * 4 + 16;
+  static constexpr int TILE = 64 * LDT;
+  static constexpr int FIT = (232448 - 1024 - 2 * TILE - 16 * 8) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  // + aligning; the ring, the two epilogue tiles, the barriers
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * TILE + 16 * STAGES;
+  static_assert(BN % TF_GRANULE == 0 && BN <= TF_TILE_MAX,
+                "f32 tile: a multiple of 16 channels, <= 128 (the sum and the slice's "
+                "partial take BN registers a consumer thread)");
+  static_assert(STAGES >= 3 && SMEM <= 232448, "a block may use 227 KB of shared memory");
 };
 
 // v rounded to tf32 (10 mantissa bits, to nearest, ties away from zero)
@@ -648,202 +671,186 @@ __device__ __forceinline__ uint32_t to_tf32(float v) {
 }
 
 // v = hi + lo + O(2^-22 |v|): hi = tf32(v), lo = tf32(v - hi) (v - hi exact)
-__device__ __forceinline__ void split_tf32(const float (&v)[4], uint4& hi, uint4& lo) {
-  uint32_t h[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    h[i] = to_tf32(v[i]);
-    l[i] = to_tf32(v[i] - __uint_as_float(h[i]));
-  }
-  hi = make_uint4(h[0], h[1], h[2], h[3]);
-  lo = make_uint4(l[0], l[1], l[2], l[3]);
+__device__ __forceinline__ void split_tf32(uint32_t v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(__uint_as_float(v));
+  lo = to_tf32(__uint_as_float(v) - __uint_as_float(hi));
 }
 
-template <int TBN>
-__global__ void __launch_bounds__(TF_THREADS) conv_tf32x3_kernel(const Conv<float> a) {
-  using S = Tf<TBN>;
+// The weights of one f32 conv split once for every block that reads them:
+// w (Kd rows of Cout, the HWIO kernel) -> hi and lo, each Cout rows of Kd
+// (K-major: tf32 wgmma takes no transpose of B), through a 32 x 32 tile in
+// shared memory so that both the reads and the writes are coalesced. Named
+// after the conv it feeds, so that a profile's trunk kernels include it.
+__global__ void conv_tf32x3_kernel_split(const float* __restrict__ w, float* __restrict__ hi,
+                                         float* __restrict__ lo, int Kd, int Cout) {
+  __shared__ float t[32][33];
+  const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32, tx = threadIdx.x;
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int k = k0 + j, n = n0 + tx;
+    t[j][tx] = k < Kd && n < Cout ? w[static_cast<int64_t>(k) * Cout + n] : 0.f;
+  }
+  __syncthreads();
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int n = n0 + j, k = k0 + tx;
+    if (n >= Cout || k >= Kd) continue;
+    uint32_t h, l;
+    split_tf32(__float_as_uint(t[tx][j]), h, l);
+    hi[static_cast<int64_t>(n) * Kd + k] = __uint_as_float(h);
+    lo[static_cast<int64_t>(n) * Kd + k] = __uint_as_float(l);
+  }
+}
+
+// four 8 x 4 f32 matrices (8 x 8 of b16 to ldmatrix) from shared memory:
+// lane l gives the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d (64 x n, f32) = A (64 x 8, tf32 fragments in registers) * B (8 x n,
+// K-major, 128-byte swizzle) + (acc ? d : 0), one warpgroup; the overload is
+// chosen by the accumulator's length n / 2
+#define TF_WGMMA(N, ACC, OUT, A0, A1, A2, A3, B, P)                                          \
+  __device__ __forceinline__ void wgmma_tf32(float(&d)[N / 2], const uint32_t(&a)[4],        \
+                                             uint64_t b, int acc) {                          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                            \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" ACC "}, {%" #A0 \
+                 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1;\n}\n"                   \
+                 : OUT                                                                       \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));            \
+  }
+
+// the accumulator operands at n = 16, 48, 80, 112, beside CW_R* / CW_O*
+#define TF_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define TF_R24 CW_R16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define TF_R40 CW_R32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define TF_R56 CW_R48 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define TF_O8 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+#define TF_O24 CW_O16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+#define TF_O40 CW_O32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+#define TF_O56 CW_O48, "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+    "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+TF_WGMMA(16, TF_R8, TF_O8, 8, 9, 10, 11, 12, 13)
+TF_WGMMA(32, CW_R16, CW_O16, 16, 17, 18, 19, 20, 21)
+TF_WGMMA(48, TF_R24, TF_O24, 24, 25, 26, 27, 28, 29)
+TF_WGMMA(64, CW_R32, CW_O32, 32, 33, 34, 35, 36, 37)
+TF_WGMMA(80, TF_R40, TF_O40, 40, 41, 42, 43, 44, 45)
+TF_WGMMA(96, CW_R48, CW_O48, 48, 49, 50, 51, 52, 53)
+TF_WGMMA(112, TF_R56, TF_O56, 56, 57, 58, 59, 60, 61)
+TF_WGMMA(128, CW_R64, CW_O64, 64, 65, 66, 67, 68, 69)
+
+// conv_wgmma_kernel's walk, ring, producer (conv_producer) and epilogue
+// (conv_epilogue) in f32, on 32-deep slices: B's hi and lo tiles (BN rows
+// of 128 B, K-major) come by TMA from the weights that
+// conv_tf32x3_kernel_split split for this conv, A as loaded (f32).
+// Warpgroups 1 and 2 consume their 64 rows of a slice: ldmatrix brings A's
+// fragments into registers (while the previous slice's wgmma runs), each
+// thread rounds its 16 values into hi and lo there, and 12 wgmma (4 k8
+// steps of lo_a hi_b, hi_a lo_b, hi_a hi_b, small terms first) read A from
+// registers and B from the stage into the slice's partial sum, which the
+// next slice adds into the f32 sum by FADD once the wgmma have retired;
+// then the stage is released.
+template <int BN>
+__global__ void __launch_bounds__(CW_THREADS, 1)
+    conv_tf32x3_kernel(const Conv<float> a, const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_hi,
+                       const __grid_constant__ CUtensorMap map_lo) {
+  using S = Tf<BN>;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t s0 = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms 1024-aligned
-  unsigned char* sm = smem_raw + (s0 - smem_u32(smem_raw));
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = tid >> 7;
-  const int tiles_n = (a.Cout + TBN - 1) / TBN;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x / tiles_n) * TF_BM;
-  const int n0 = static_cast<int>(blockIdx.x % tiles_n) * TBN;
+  const uint32_t s0 = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms aligned
+  const uint32_t tile0 = s0 + S::STAGES * S::STAGE, full0 = tile0 + 2 * S::TILE;
+  const uint32_t empty0 = full0 + 8 * S::STAGES;
+  const int tid = threadIdx.x;
+  const bool tma_a = a_by_tma(a);
+  const int tiles_n = (a.Cout + BN - 1) / BN;
+  const int64_t tiles = (a.M + CW_BM - 1) / CW_BM * tiles_n;
   const int Kd = a.K * a.K * a.Cin;
   const int KT = (Kd + TF_BK - 1) / TF_BK;
+  ring_init<S::STAGES>(full0, empty0, tma_a);
 
-  // A staging as conv_wgmma_kernel's: chunk ac (4 channels) of rows
-  // ar0 + i * TF_THREADS / 8, all at one tap a slice
-  const int ac = tid & 7, ar0 = tid >> 3;
-  int64_t row[S::A_ROWS];  // the row's tap (0, 0), relative to x
-  int iy0[S::A_ROWS], ix0[S::A_ROWS];
+  if (tid < CW_PRODUCER) {
+    // B: hi and lo, each in one box of BN rows x 32
+    conv_producer<BN, S>(a, &map_a, s0, full0, empty0,
+                         [&](uint32_t sb, int n0, int k0, uint32_t full) {
+                           tma_load(sb, &map_hi, k0, n0, full);
+                           tma_load(sb + S::B_BYTES, &map_lo, k0, n0, full);
+                         });
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CW_CONSUMER_REGS));
+    const int lt = tid - CW_PRODUCER, wgc = lt >> 7, warp = (lt >> 5) & 3, lane = lt & 31;
+    const bool leader = (lt & 127) == 0;  // arrives for its warpgroup
+    // ldmatrix of a k8 step: matrices 0 and 1 the warp's rows 0-7 and 8-15
+    // at k 0-3, matrices 2 and 3 the same rows at k 4-7, so register i
+    // holds the fragment a_i of wgmma's A layout (row lane / 4 (+ 8), k
+    // lane % 4 (+ 4))
+    const int lrow = wgc * 64 + warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+    const int lchunk = lane >> 4;
+    int s = 0, prev = 0;
+    uint32_t ph = 0;
+    // the tensor cores add a wgmma's products to its accumulator rounding
+    // toward zero, a bias that grows with the steps one accumulator takes
+    // (on an H100, 1.15e-5 of the largest output at K = 1440 with one
+    // accumulator over the whole reduction): each slice's 12 wgmma steps
+    // start a partial sum of their own, and the partials are added into
+    // the f32 sum by FADD, rounding to nearest
+    float acc[BN / 2], part[BN / 2];
 #pragma unroll
-  for (int i = 0; i < S::A_ROWS; ++i) {
-    const int64_t m = m0 + ar0 + i * (TF_THREADS / 8);
-    row[i] = 0;
-    iy0[i] = -(1 << 29);  // rows past M read nothing
-    ix0[i] = 0;
-    if (m < a.M) {
-      const int ox = static_cast<int>(m % a.Wo);
-      const int64_t t = m / a.Wo;
-      const int oy = static_cast<int>(t % a.Ho);
-      iy0[i] = oy * a.stride - a.pad;
-      ix0[i] = ox * a.stride - a.pad;
-      row[i] = ((t / a.Ho) * a.H * a.W + static_cast<int64_t>(iy0[i]) * a.W + ix0[i]) * a.ldx;
-    }
-  }
-  int k = ac * 4, ci = k % a.Cin, kx = (k / a.Cin) % a.K, ky = (k / a.Cin) / a.K;
-  // B staging: chunk bc (4 channels) of reduction rows br0 + j * B_STEP
-  const int bc = tid % (TBN / 4), br0 = tid / (TBN / 4);
-  const bool bv = n0 + bc * 4 < a.Cout;
-  const float* wrow = a.w + static_cast<int64_t>(br0) * a.Cout + n0 + bc * 4;
-
-  // raw slice kt into ring slot `slot`: A as TF_BM swizzled rows of 128 B,
-  // B as TF_BK rows of TBN channels
-  auto stage = [&](int slot, int kt) {
-    const uint32_t sa = s0 + slot * S::RAW_BYTES, sb = sa + S::A_BYTES;
-    const bool kv = k < Kd;
-    const int64_t tap = (static_cast<int64_t>(ky) * a.W + kx) * a.ldx + ci;
+    for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
+    for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int64_t m0 = t / tiles_n * CW_BM;
+      const int n0 = static_cast<int>(t % tiles_n) * BN;
 #pragma unroll
-    for (int i = 0; i < S::A_ROWS; ++i) {
-      const bool v = kv && static_cast<unsigned>(iy0[i] + ky) < static_cast<unsigned>(a.H) &&
-                     static_cast<unsigned>(ix0[i] + kx) < static_cast<unsigned>(a.W);
-      cp_async16(sa + sw128(ar0 + i * (TF_THREADS / 8), ac), v ? a.x + row[i] + tap : a.x, v);
-    }
-    k += TF_BK;
-    ci += TF_BK;
-    while (ci >= a.Cin) {
-      ci -= a.Cin;
-      if (++kx == a.K) {
-        kx = 0;
-        ++ky;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(full0 + 8 * s, ph);
+        const uint32_t sa = s0 + s * S::STAGE;
+        uint32_t hi[TF_BK / 8][4], lo[TF_BK / 8][4];
+#pragma unroll
+        for (int kk = 0; kk < TF_BK / 8; ++kk) ldsm_x4(sa + sw128(lrow, 2 * kk + lchunk), hi[kk]);
+        if (kt > 0) {  // slice kt - 1's partial into the sum; its stage is free
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          fence_acc(part);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+          if (leader) mbar_arrive(empty0 + 8 * prev);
+        }
+#pragma unroll
+        for (int kk = 0; kk < TF_BK / 8; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(hi[kk][i], hi[kk][i], lo[kk][i]);
+        // B: BN rows of 128 B, 8-row atoms 1024 B apart; a k8 step is 32 B
+        // further along them
+        const uint64_t dhi = smem_desc(sa + S::A_BYTES, 16, 1024);
+        const uint64_t dlo = smem_desc(sa + S::A_BYTES + S::B_BYTES, 16, 1024);
+        fence_acc(part);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < TF_BK / 8; ++kk) {  // the slice's first product overwrites
+          wgmma_tf32(part, lo[kk], dhi + 2 * kk, kk);
+          wgmma_tf32(part, hi[kk], dlo + 2 * kk, 1);
+          wgmma_tf32(part, hi[kk], dhi + 2 * kk, 1);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        prev = s;
+        if (++s == S::STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
       }
-    }
-    const int64_t kb0 = static_cast<int64_t>(kt) * TF_BK;
-#pragma unroll
-    for (int j = 0; j < S::B_CHUNKS; ++j) {
-      const int kk = br0 + j * S::B_STEP;
-      const bool v = bv && kb0 + kk < Kd;
-      cp_async16(sb + (kk * TBN + bc * 4) * 4, v ? wrow + (kb0 + j * S::B_STEP) * a.Cout : a.w,
-                 v);
-    }
-  };
-
-  // the split pass: raw slot `slot` -> split buffer `buf`. A's chunks keep
-  // their swizzled offsets (a warp's 16-byte reads and writes contiguous);
-  // B's 4 reduction rows of one channel become one K-major chunk of row n
-  // (a warp reads 32 neighbouring channels of a row, a quarter-warp writes
-  // 8 rows' chunks, which the swizzle puts in 8 different bank groups)
-  auto split = [&](int slot, int buf) {
-    const unsigned char* ra = sm + slot * S::RAW_BYTES;
-    const float* rb = reinterpret_cast<const float*>(ra + S::A_BYTES);
-    unsigned char* ha = sm + S::SPLIT0 + buf * S::SPLIT_BYTES;
-    unsigned char* la = ha + S::A_BYTES;
-    unsigned char* hb = la + S::A_BYTES;
-    unsigned char* lb = hb + S::B_BYTES;
-    uint4 h, l;
-#pragma unroll
-    for (int i = 0; i < S::A_BYTES / 16 / TF_THREADS; ++i) {
-      const int off = (tid + i * TF_THREADS) * 16;
-      const float4 q = *reinterpret_cast<const float4*>(ra + off);
-      split_tf32({q.x, q.y, q.z, q.w}, h, l);
-      *reinterpret_cast<uint4*>(ha + off) = h;
-      *reinterpret_cast<uint4*>(la + off) = l;
-    }
-#pragma unroll
-    for (int i = 0; i < TBN * (TF_BK / 4) / TF_THREADS; ++i) {
-      const int e = tid + i * TF_THREADS, n = e % TBN, c = e / TBN;
-      split_tf32({rb[(4 * c) * TBN + n], rb[(4 * c + 1) * TBN + n], rb[(4 * c + 2) * TBN + n],
-                  rb[(4 * c + 3) * TBN + n]},
-                 h, l);
-      *reinterpret_cast<uint4*>(hb + sw128(n, c)) = h;
-      *reinterpret_cast<uint4*>(lb + sw128(n, c)) = l;
-    }
-  };
-
-  // the tensor cores add a wgmma's products to its accumulator rounding
-  // toward zero, a bias that grows with the steps one accumulator takes
-  // (on an H100, 1.15e-5 of the largest output at K = 1440 with one
-  // accumulator over the whole reduction): each slice's 12 wgmma steps
-  // start a partial sum of their own, and the partials are added into the
-  // f32 sum by FADD, rounding to nearest
-  float acc[TBN / 2], part[TBN / 2];
-#pragma unroll
-  for (int i = 0; i < TBN / 2; ++i) acc[i] = part[i] = 0.f;
-
-  for (int s = 0; s < TF_STAGES; ++s) {
-    if (s < KT) stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<TF_STAGES - 1>();  // raw slice kt has landed (this thread's part)
-    // every thread's part; and both warpgroups have waited for slice
-    // kt - 2's wgmma, the last reader of split buffer kt & 1
-    __syncthreads();
-    split(kt % TF_STAGES, kt & 1);  // while slice kt - 1's wgmma runs
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-    __syncthreads();  // the split tiles are whole; raw slot kt % TF_STAGES is free
-    if (kt + TF_STAGES < KT) stage(kt % TF_STAGES, kt + TF_STAGES);
-    cp_async_commit();
-    if (kt > 0) {  // slice kt - 1's partial into the sum
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_acc(part);
 #pragma unroll
-      for (int i = 0; i < TBN / 2; ++i) acc[i] += part[i];
-    }
-    // A: this warpgroup's 64 rows; B: TBN rows; 8-row atoms 1024 B apart
-    const uint32_t ha = s0 + S::SPLIT0 + (kt & 1) * S::SPLIT_BYTES, la = ha + S::A_BYTES;
-    const uint32_t hb = la + S::A_BYTES, lb = hb + S::B_BYTES;
-    const uint64_t dha = smem_desc(ha + wg * 64 * 128, 16, 1024);
-    const uint64_t dla = smem_desc(la + wg * 64 * 128, 16, 1024);
-    const uint64_t dhb = smem_desc(hb, 16, 1024), dlb = smem_desc(lb, 16, 1024);
-    fence_acc(part);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < TF_BK / 8; ++kk) {
-      // k8 step: 32 B further along the rows of both; small terms first,
-      // the slice's first product overwriting the partial
-      if constexpr (TBN == 128) {
-        wgmma_tf32_n128(part, dla + 2 * kk, dhb + 2 * kk, kk);
-        wgmma_tf32_n128(part, dha + 2 * kk, dlb + 2 * kk, 1);
-        wgmma_tf32_n128(part, dha + 2 * kk, dhb + 2 * kk, 1);
-      } else {
-        wgmma_tf32_n64(part, dla + 2 * kk, dhb + 2 * kk, kk);
-        wgmma_tf32_n64(part, dha + 2 * kk, dlb + 2 * kk, 1);
-        wgmma_tf32_n64(part, dha + 2 * kk, dhb + 2 * kk, 1);
-      }
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  fence_acc(part);
-#pragma unroll
-  for (int i = 0; i < TBN / 2; ++i) acc[i] += part[i];
-  cp_async_wait<0>();
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+      if (leader) mbar_arrive(empty0 + 8 * prev);
 
-  // epilogue as conv_wgmma_kernel's, in f32: bias and ReLU into a tile in
-  // shared memory over the ring, then out in 16-byte chunks of 4 channels
-  __syncthreads();  // every warp is done with the ring
-#pragma unroll
-  for (int j = 0; j < TBN / 8; ++j) {
-    const int c = j * 8 + (lane & 3) * 2, n = n0 + c;
-    const float b0 = n < a.Cout ? a.b[n] : 0.f;
-    const float b1 = n < a.Cout ? a.b[n + 1] : 0.f;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2) + hf * 8;
-      *reinterpret_cast<float2*>(sm + r * S::LDT + c * 4) =
-          make_float2(fmaxf(acc[4 * j + 2 * hf] + b0, 0.f), fmaxf(acc[4 * j + 2 * hf + 1] + b1, 0.f));
+      conv_epilogue<BN, S::LDT>(
+          a, acc, smem_raw + (tile0 + wgc * S::TILE - smem_u32(smem_raw)), m0, n0, lt);
     }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int e = tid; e < TF_BM * (TBN / 4); e += TF_THREADS) {
-    const int r = e / (TBN / 4), n = n0 + (e % (TBN / 4)) * 4;
-    const int64_t m = m0 + r;
-    if (m >= a.M || n >= a.Cout) continue;
-    float* y = n < a.split ? a.y0 + m * a.ldy0 + n : a.y1 + m * a.ldy1 + (n - a.split);
-    *reinterpret_cast<uint4*>(y) = *reinterpret_cast<const uint4*>(sm + r * S::LDT + (n - n0) * 4);
   }
 }
 
@@ -1269,24 +1276,30 @@ bool tc_ok(const Conv<T>& a) {
          aligned16(a.y0) && aligned16(a.y1);
 }
 
-// f32: the width of 64 or 128 that pads Cout less (128 on a tie)
-int tc_tile(const Conv<float>& a) {
+// the tile widths of a dtype: multiples of a granule up to a most, bf16 32
+// (half a B box) and 256, f32 16 and 128 (the sum and the slice's partial
+// fill a consumer's registers)
+template <typename T>
+struct Tiles {
+  static constexpr int granule = std::is_same<T, float>::value ? TF_GRANULE : CW_GRANULE;
+  static constexpr int most = std::is_same<T, float>::value ? TF_TILE_MAX : 256;
+};
+
+// the fewest column tiles of at most `most` channels, each as wide as their
+// share of Cout rounded up to the granule; one tile, so A staged once,
+// wherever Cout <= most
+template <typename T>
+int tc_tile(const Conv<T>& a) {
+  using W = Tiles<T>;
   if (!tc_ok(a)) return 0;
-  return a.Cout % 128 == 0 || a.Cout % 128 > 64 ? 128 : 64;
+  const int tiles = (a.Cout + W::most - 1) / W::most;
+  return ((a.Cout + tiles - 1) / tiles + W::granule - 1) / W::granule * W::granule;
 }
 
-// bf16: the fewest column tiles of at most 256 channels, each as wide as
-// their share of Cout rounded up to the 32 channels of a B box; one tile,
-// so A staged once, wherever Cout <= 256
-int tc_tile(const Conv<bf16>& a) {
-  if (!tc_ok(a)) return 0;
-  const int tiles = (a.Cout + 255) / 256;
-  return ((a.Cout + tiles - 1) / tiles + CW_GRANULE - 1) / CW_GRANULE * CW_GRANULE;
-}
-
-// bf16 conv launches by tile width (index width / 32), since the last
-// srcf_conv_bf16_launches_reset; atomic, as shards launch from threads
-std::atomic<int64_t> bf16_conv_launches[256 / CW_GRANULE + 1];
+// conv launches by dtype (0 f32, 1 bf16) and tile width (index width /
+// granule), since the last srcf_conv_launches_reset; atomic, as shards
+// launch from threads
+std::atomic<int64_t> conv_launches[2][9];
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point (the
 // library links no driver library); null if the driver lacks it
@@ -1311,23 +1324,37 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a bf16 matrix of `rows` rows of `cols` elements, `ld` elements apart, in
-// boxes of box_rows x box_cols; elements outside it read 0
-int tensor_map(CUtensorMap* map, const bf16* base, uint64_t cols, uint64_t rows, int64_t ld,
-               uint32_t box_cols, uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+// a bf16 or f32 matrix of `rows` rows of `cols` elements, `ld` elements
+// apart, in boxes of box_rows x box_cols in the 128-byte swizzle; elements
+// outside it read 0
+template <typename T>
+int tensor_map(CUtensorMap* map, const T* base, uint64_t cols, uint64_t rows, int64_t ld,
+               uint32_t box_cols, uint32_t box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(T)};
   const cuuint32_t box[2] = {box_cols, box_rows}, unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(
+      map, std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<T*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the tensor maps on the host for each launch (no synchronisation), then
 // one block an SM, or one a tile where there are fewer tiles
+int persistent_blocks(int64_t tiles, unsigned* blocks) {
+  int dev, sms;
+  TRY(static_cast<int>(cudaGetDevice(&dev)));
+  TRY(static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)));
+  *blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  return 0;
+}
+
+// the tensor maps on the host for each launch (no synchronisation), then
+// the persistent blocks
 template <int BN>
 int launch_wgmma(const Conv<bf16>& a, cudaStream_t st) {
   using S = Cw<BN>;
@@ -1336,38 +1363,64 @@ int launch_wgmma(const Conv<bf16>& a, cudaStream_t st) {
   const int Kd = a.K * a.K * a.Cin;
   CUtensorMap map_a, map_b;
   // B: the HWIO weights, Kd rows of Cout, in boxes of 64 rows x 64 channels
-  TRY(tensor_map(&map_b, a.w, a.Cout, Kd, a.Cout, CW_BOX, CW_BK, CU_TENSOR_MAP_SWIZZLE_128B));
+  TRY(tensor_map(&map_b, a.w, a.Cout, Kd, a.Cout, CW_BOX, CW_BK));
   // A of a 1x1 conv: M pixel rows of Cin channels, ldx apart, in boxes of
   // 128 rows x 64 channels (the other convs build it by cp.async)
   if (a_by_tma(a)) {
-    TRY(tensor_map(&map_a, a.x, a.Cin, a.M, a.ldx, CW_BK, CW_BM, CU_TENSOR_MAP_SWIZZLE_128B));
+    TRY(tensor_map(&map_a, a.x, a.Cin, a.M, a.ldx, CW_BK, CW_BM));
   } else {
     map_a = map_b;
   }
   TRY(static_cast<int>(cudaFuncSetAttribute(
       conv_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM)));
-  int dev, sms;
-  TRY(static_cast<int>(cudaGetDevice(&dev)));
-  TRY(static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)));
-  const int64_t tiles = (a.M + CW_BM - 1) / CW_BM * ((a.Cout + BN - 1) / BN);
-  const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  unsigned blocks;
+  TRY(persistent_blocks((a.M + CW_BM - 1) / CW_BM * ((a.Cout + BN - 1) / BN), &blocks));
   conv_wgmma_kernel<BN><<<blocks, CW_THREADS, S::SMEM, st>>>(a, map_a, map_b);
   const int err = static_cast<int>(cudaGetLastError());
-  if (err == 0) ++bf16_conv_launches[BN / CW_GRANULE];
+  if (err == 0) ++conv_launches[1][BN / Tiles<bf16>::granule];
   return err;
 }
 
-template <int TBN>
-int launch_tf32x3(const Conv<float>& a, cudaStream_t st) {
-  using S = Tf<TBN>;
+// the weights split into hi and lo in `wsplit` (2 Kd Cout floats, reused
+// by every conv of a segment: stream order keeps the conv before from
+// reading what the next split writes), then the tensor maps and the
+// persistent blocks
+template <int BN>
+int launch_tf32x3(const Conv<float>& a, float* wsplit, cudaStream_t st) {
+  using S = Tf<BN>;
+  if (a.M == 0) return 0;
+  if (a.M > INT32_MAX || !wsplit || !aligned16(wsplit))  // pixel indices; the split's rows
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Kd = a.K * a.K * a.Cin;
+  float* hi = wsplit;
+  float* lo = wsplit + static_cast<int64_t>(Kd) * a.Cout;
+  conv_tf32x3_kernel_split<<<dim3((a.Cout + 31) / 32, (Kd + 31) / 32), dim3(32, 8), 0, st>>>(
+      a.w, hi, lo, Kd, a.Cout);
+  TRY(static_cast<int>(cudaGetLastError()));
+  CUtensorMap map_a, map_hi, map_lo;
+  // B: hi and lo, Cout rows of Kd, in boxes of BN rows x 32 (a slice)
+  TRY(tensor_map(&map_hi, hi, Kd, a.Cout, Kd, TF_BK, BN));
+  TRY(tensor_map(&map_lo, lo, Kd, a.Cout, Kd, TF_BK, BN));
+  // A of a 1x1 conv: M pixel rows of Cin channels, ldx apart, in boxes of
+  // 128 rows x 32 channels (the other convs build it by cp.async)
+  if (a_by_tma(a)) {
+    TRY(tensor_map(&map_a, a.x, a.Cin, a.M, a.ldx, TF_BK, CW_BM));
+  } else {
+    map_a = map_hi;
+  }
   TRY(static_cast<int>(cudaFuncSetAttribute(
-      conv_tf32x3_kernel<TBN>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM)));
-  const int64_t blocks = (a.M + TF_BM - 1) / TF_BM * ((a.Cout + TBN - 1) / TBN);
-  conv_tf32x3_kernel<TBN><<<static_cast<unsigned>(blocks), TF_THREADS, S::SMEM, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+      conv_tf32x3_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM)));
+  unsigned blocks;
+  TRY(persistent_blocks((a.M + CW_BM - 1) / CW_BM * ((a.Cout + BN - 1) / BN), &blocks));
+  conv_tf32x3_kernel<BN><<<blocks, CW_THREADS, S::SMEM, st>>>(a, map_a, map_hi, map_lo);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err == 0) ++conv_launches[0][BN / Tiles<float>::granule];
+  return err;
 }
 
-int launch(const Conv<bf16>& a, cudaStream_t st) {
+// the tensor-core kernel of the conv's dtype at the rule's tile width;
+// wsplit: the f32 kernel's split weights (unused in bf16)
+int launch(const Conv<bf16>& a, bf16*, cudaStream_t st) {
   switch (tc_tile(a)) {
     case 32: return launch_wgmma<32>(a, st);
     case 64: return launch_wgmma<64>(a, st);
@@ -1381,10 +1434,16 @@ int launch(const Conv<bf16>& a, cudaStream_t st) {
   }
 }
 
-int launch(const Conv<float>& a, cudaStream_t st) {
+int launch(const Conv<float>& a, float* wsplit, cudaStream_t st) {
   switch (tc_tile(a)) {
-    case 128: return launch_tf32x3<128>(a, st);
-    case 64: return launch_tf32x3<64>(a, st);
+    case 16: return launch_tf32x3<16>(a, wsplit, st);
+    case 32: return launch_tf32x3<32>(a, wsplit, st);
+    case 48: return launch_tf32x3<48>(a, wsplit, st);
+    case 64: return launch_tf32x3<64>(a, wsplit, st);
+    case 80: return launch_tf32x3<80>(a, wsplit, st);
+    case 96: return launch_tf32x3<96>(a, wsplit, st);
+    case 112: return launch_tf32x3<112>(a, wsplit, st);
+    case 128: return launch_tf32x3<128>(a, wsplit, st);
     default: return static_cast<int>(cudaErrorInvalidValue);  // the rule refuses it
   }
 }
@@ -1406,21 +1465,22 @@ Conv<T> make_conv(int n, const T* x, int64_t ldx, int H, int W, int Cin, int K, 
   return a;
 }
 
-// conv + bias + ReLU of an (n, H, W, Cin) map; see Conv for the outputs
+// conv + bias + ReLU of an (n, H, W, Cin) map; see Conv for the outputs and
+// launch for wsplit
 template <typename T>
-int conv(cudaStream_t st, int n, const T* x, int64_t ldx, int H, int W, int Cin,
+int conv(cudaStream_t st, T* wsplit, int n, const T* x, int64_t ldx, int H, int W, int Cin,
          int K, int stride, int pad, const T* w, const T* b, int Cout, T* y0,
          int64_t ldy0, int split, T* y1, int64_t ldy1) {
   return launch(make_conv(n, x, ldx, H, W, Cin, K, stride, pad, w, b, Cout, y0, ldy0, split,
-                          y1, ldy1), st);
+                          y1, ldy1), wsplit, st);
 }
 
 // plain conv: all Cout channels to one map with pixel stride ldy
 template <typename T>
-int conv(cudaStream_t st, int n, const T* x, int64_t ldx, int H, int W, int Cin,
+int conv(cudaStream_t st, T* wsplit, int n, const T* x, int64_t ldx, int H, int W, int Cin,
          int K, int stride, int pad, const T* w, const T* b, int Cout, T* y,
          int64_t ldy) {
-  return conv(st, n, x, ldx, H, W, Cin, K, stride, pad, w, b, Cout, y, ldy, Cout, y, ldy);
+  return conv(st, wsplit, n, x, ldx, H, W, Cin, K, stride, pad, w, b, Cout, y, ldy, Cout, y, ldy);
 }
 
 // k x k / s max pool of a contiguous (n, H, W, C) map, padding pad: ceil
@@ -1458,20 +1518,20 @@ constexpr Plan k5b{832, 384, 192, 384, 48, 128, 128};
 // wt: wide 1x1 (cin, ch1 + red3 + red5) and its bias, branch2's 3x3
 // (3, 3, red3, ch3) and bias, branch3's 3x3 (3, 3, red5, ch5) and bias,
 // branch4's 1x1 (cin, proj) and bias. Scratch: red (n, h, w, red3 + red5),
-// pooled (n, h, w, cin).
+// pooled (n, h, w, cin); wsplit: see launch.
 template <typename T>
-int inception(cudaStream_t st, int n, const Plan& p, const T* x, int h, int w,
+int inception(cudaStream_t st, T* wsplit, int n, const Plan& p, const T* x, int h, int w,
               const T* const* wt, T* red, T* pooled, T* y) {
   const int cr = p.red3 + p.red5, co = p.out();
   // the three 1x1s as one conv: [0, ch1) -> y, the reductions -> red
-  TRY(conv(st, n, x, p.cin, h, w, p.cin, 1, 1, 0, wt[0], wt[1], p.ch1 + cr, y, co,
+  TRY(conv(st, wsplit, n, x, p.cin, h, w, p.cin, 1, 1, 0, wt[0], wt[1], p.ch1 + cr, y, co,
            p.ch1, red, cr));
-  TRY(conv(st, n, red, cr, h, w, p.red3, 3, 1, 1, wt[2], wt[3], p.ch3, y + p.ch1, co));
-  TRY(conv(st, n, red + p.red3, cr, h, w, p.red5, 3, 1, 1, wt[4], wt[5], p.ch5,
+  TRY(conv(st, wsplit, n, red, cr, h, w, p.red3, 3, 1, 1, wt[2], wt[3], p.ch3, y + p.ch1, co));
+  TRY(conv(st, wsplit, n, red + p.red3, cr, h, w, p.red5, 3, 1, 1, wt[4], wt[5], p.ch5,
            y + p.ch1 + p.ch3, co));
   // branch 4: the block input's 3x3/1 max pool once, then a plain 1x1
   TRY(maxpool(st, n, x, h, w, p.cin, 3, 1, 1, pooled));
-  TRY(conv(st, n, pooled, p.cin, h, w, p.cin, 1, 1, 0, wt[6], wt[7], p.proj,
+  TRY(conv(st, wsplit, n, pooled, p.cin, h, w, p.cin, 1, 1, 0, wt[6], wt[7], p.proj,
            y + p.ch1 + p.ch3 + p.ch5, co));
   return 0;
 }
@@ -1493,7 +1553,8 @@ int front(const Front<T>& a, int n, cudaStream_t st) {
 
 // windows: see Front (origins (n, 2) of int64)
 // weights: conv1 (7, 7, 1, 64), b1, conv2 (64, 64), b2, conv3 (3, 3, 64, 192), b3
-// scratch: c2 (n, d/4, d/4, 64), c3 (same, 192)
+// scratch: c2 (n, d/4, d/4, 64), c3 (same, 192), then wsplit (see launch;
+// f32: 2 x its convs' largest K*K*Cin*Cout floats, bf16 unused)
 template <typename T>
 int fused_stage12(const T* src, int64_t pitch, int64_t rows, int64_t cols,
                   const int64_t* origins, T* out, const T* const* wt, T* const* s, int n,
@@ -1506,42 +1567,43 @@ int fused_stage12(const T* src, int64_t pitch, int64_t rows, int64_t cols,
   a.h2 = ceil_out(a.h1, 3, 2);
   a.tiles = (a.h2 + FT - 1) / FT;
   TRY(front(a, n, st));
-  TRY(conv(st, n, s[0], 64, a.h2, a.h2, 64, 3, 1, 1, wt[4], wt[5], 192, s[1], 192));
+  TRY(conv(st, s[2], n, s[0], 64, a.h2, a.h2, 64, 3, 1, 1, wt[4], wt[5], 192, s[1], 192));
   return maxpool(st, n, s[1], a.h2, a.h2, 192, 3, 2, 0, out);
 }
 
 // weights: 8 per inception block, 3a and 3b (see inception)
 // scratch: red (n, g, g, 160), pooled (n, g, g, 256), i3a (n, g, g, 256),
-// i3b (n, g, g, 480)
+// i3b (n, g, g, 480), wsplit
 template <typename T>
 int trunk_s3(const T* x, T* out, const T* const* wt, T* const* s, int n, int g,
              cudaStream_t st) {
-  TRY(inception(st, n, k3a, x, g, g, wt, s[0], s[1], s[2]));
-  TRY(inception(st, n, k3b, s[2], g, g, wt + 8, s[0], s[1], s[3]));
+  TRY(inception(st, s[4], n, k3a, x, g, g, wt, s[0], s[1], s[2]));
+  TRY(inception(st, s[4], n, k3b, s[2], g, g, wt + 8, s[0], s[1], s[3]));
   return maxpool(st, n, s[3], g, g, k3b.out(), 3, 2, 0, out);
 }
 
 // weights: conv2, b2, conv3, b3, then trunk_s3's
 // scratch: p1 (n, h/2, h/2, 64), c2 (same), c3 (n, h/2, h/2, 192),
 // p2 (n, h/4, h/4, 192), red (n, h/4, h/4, 160), i3a (n, h/4, h/4, 256),
-// i3b (n, h/4, h/4, 480)
+// i3b (n, h/4, h/4, 480), wsplit
 template <typename T>
 int trunk_s23(const T* x, T* out, const T* const* wt, T* const* s, int n, int h,
               cudaStream_t st) {
   const int h2 = ceil_out(h, 3, 2), h4 = ceil_out(h2, 3, 2);
   TRY(maxpool(st, n, x, h, h, 64, 3, 2, 0, s[0]));
-  TRY(conv(st, n, s[0], 64, h2, h2, 64, 1, 1, 0, wt[0], wt[1], 64, s[1], 64));
-  TRY(conv(st, n, s[1], 64, h2, h2, 64, 3, 1, 1, wt[2], wt[3], 192, s[2], 192));
+  TRY(conv(st, s[7], n, s[0], 64, h2, h2, 64, 1, 1, 0, wt[0], wt[1], 64, s[1], 64));
+  TRY(conv(st, s[7], n, s[1], 64, h2, h2, 64, 3, 1, 1, wt[2], wt[3], 192, s[2], 192));
   TRY(maxpool(st, n, s[2], h2, h2, 192, 3, 2, 0, s[3]));
   // c2 = s[1] is dead from here; its (h/2)^2 * 64 elements are exactly
   // (h/4)^2 * 256, so it holds branch 4's pooled input of 3a (192
   // channels) and of 3b (256) with no scratch of its own
-  T* const s3[4] = {s[4], s[1], s[5], s[6]};
+  T* const s3[5] = {s[4], s[1], s[5], s[6], s[7]};
   return trunk_s3(s[3], out, wt + 4, s3, n, h4, st);
 }
 
 // weights: 8 per inception block, 4a..4e, 5a, 5b
-// scratch: red (n, g, g, 240), ping and pong (n, g, g, 832), pooled (n, g, g, 832)
+// scratch: red (n, g, g, 240), ping and pong (n, g, g, 832), pooled (n, g, g, 832),
+// wsplit
 template <typename T>
 int trunk_s45(const T* x, T* out, const T* const* wt, T* const* s, int n, int g,
               cudaStream_t st) {
@@ -1550,13 +1612,13 @@ int trunk_s45(const T* x, T* out, const T* const* wt, T* const* s, int n, int g,
   T* pooled = s[3];
   const T* cur = x;
   for (int i = 0; i < 5; ++i) {
-    TRY(inception(st, n, k4[i], cur, g, g, wt + 8 * i, red, pooled, buf[i % 2]));
+    TRY(inception(st, s[4], n, k4[i], cur, g, g, wt + 8 * i, red, pooled, buf[i % 2]));
     cur = buf[i % 2];
   }
   const int g2 = ceil_out(g, 2, 2);
   TRY(maxpool(st, n, buf[0], g, g, k4[4].out(), 2, 2, 0, buf[1]));
-  TRY(inception(st, n, k5a, buf[1], g2, g2, wt + 40, red, pooled, buf[0]));
-  TRY(inception(st, n, k5b, buf[0], g2, g2, wt + 48, red, pooled, buf[1]));
+  TRY(inception(st, s[4], n, k5a, buf[1], g2, g2, wt + 40, red, pooled, buf[0]));
+  TRY(inception(st, s[4], n, k5b, buf[0], g2, g2, wt + 48, red, pooled, buf[1]));
   const int64_t total = static_cast<int64_t>(n) * k5b.out();
   gap_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
       buf[1], out, g2 * g2, k5b.out(), total);
@@ -1605,27 +1667,34 @@ STAGE12_ENTRY(srcf_fused_stage12_bf16, bf16)
                static_cast<const T*>(w), static_cast<const T*>(b), Cout,               \
                static_cast<T*>(y0), ldy0, split, static_cast<T*>(y1), ldy1)
 
-extern "C" int srcf_conv_f32(CONV_ARGS, void* stream) {
-  return launch(MAKE_CONV(float), static_cast<cudaStream_t>(stream));
+// wsplit: 2 K*K*Cin*Cout floats of scratch for the split weights
+extern "C" int srcf_conv_f32(CONV_ARGS, void* wsplit, void* stream) {
+  return launch(MAKE_CONV(float), static_cast<float*>(wsplit),
+                static_cast<cudaStream_t>(stream));
 }
 extern "C" int srcf_conv_bf16(CONV_ARGS, void* stream) {
-  return launch(MAKE_CONV(bf16), static_cast<cudaStream_t>(stream));
+  return launch(MAKE_CONV(bf16), nullptr, static_cast<cudaStream_t>(stream));
 }
 // the tile width srcf_conv_f32 / srcf_conv_bf16 would launch for these
-// arguments (tc_tile): f32 64 or 128, bf16 a multiple of 32 up to 256; 0
-// for a conv the rule refuses (srcf_conv_* returns an error for it);
-// launches nothing
+// arguments (tc_tile): a multiple of 16 up to 128 (f32) or of 32 up to 256
+// (bf16); 0 for a conv the rule refuses (srcf_conv_* returns an error for
+// it); launches nothing
 extern "C" int srcf_conv_f32_tile(CONV_ARGS) { return tc_tile(MAKE_CONV(float)); }
 extern "C" int srcf_conv_bf16_tile(CONV_ARGS) { return tc_tile(MAKE_CONV(bf16)); }
 
-// bf16 conv kernels launched at tile width `width` (every conv of the
-// segments and of srcf_conv_bf16) since the last reset; -1 for a width no
+// conv kernels of one dtype launched at tile width `width` (every conv of
+// the segments and of srcf_conv_*) since the last reset; -1 for a width no
 // kernel has
-extern "C" int srcf_conv_bf16_launches(int width) {
-  if (width <= 0 || width > 256 || width % CW_GRANULE) return -1;
-  return static_cast<int>(bf16_conv_launches[width / CW_GRANULE].load());
+template <typename T>
+static int launches_at(int width) {
+  using W = Tiles<T>;
+  if (width <= 0 || width > W::most || width % W::granule) return -1;
+  return static_cast<int>(conv_launches[std::is_same<T, bf16>::value][width / W::granule].load());
 }
-extern "C" int srcf_conv_bf16_launches_reset() {
-  for (auto& n : bf16_conv_launches) n.store(0);
+extern "C" int srcf_conv_f32_launches(int width) { return launches_at<float>(width); }
+extern "C" int srcf_conv_bf16_launches(int width) { return launches_at<bf16>(width); }
+extern "C" int srcf_conv_launches_reset() {
+  for (auto& d : conv_launches)
+    for (auto& n : d) n.store(0);
   return 0;
 }

@@ -55,7 +55,7 @@ __all__ = ["fused_stage12", "fused_stage12_gather", "trunk_s23", "trunk_s3", "tr
            "trunk_segment_params", "pack_params", "PackedParams", "launches",
            "KERNEL", "SCRATCH_BUDGET_BYTES", "scratch_plan", "sub_batch",
            "conv_plan", "ConvLaunch", "tensor_core_ok", "conv_tile_width", "conv_launches",
-           "BF16_TILE_GRANULE", "BF16_TILE_MAX", "BF16_TILE_WIDTHS"]
+           "split_scratch", "TILE_GRANULE", "TILE_MAX", "TILE_WIDTHS", "split_tf32"]
 
 #: inception channel plans (reference: cnn/archs/googlenet1.py:64-79):
 #: name -> (ch1x1, ch3x3red, ch3x3, ch5x5red, ch5x5, pool_proj)
@@ -89,30 +89,36 @@ _STAGE12_SIG = [_P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _P]
 _CONV_SIG = [_P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _L, _I, _P, _L, _P]
 _NAMES = ("fused_stage12", "trunk_s23", "trunk_s3", "trunk_s45")
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-#: the bf16 conv's tile widths: multiples of 32 channels (half of one of its
-#: 64-channel B boxes, the rest of which wgmma leaves unread), up to 256
-BF16_TILE_GRANULE, BF16_TILE_MAX = 32, 256
-BF16_TILE_WIDTHS = tuple(range(BF16_TILE_GRANULE, BF16_TILE_MAX + 1, BF16_TILE_GRANULE))
+#: the tensor-core convs' tile widths: in bf16 multiples of 32 channels
+#: (half of one of its 64-channel B boxes, the rest of which wgmma leaves
+#: unread) up to 256; in f32 multiples of 16 up to 128, where a consumer
+#: thread's registers hold the f32 sum and the 32-deep slice's partial
+TILE_GRANULE = {torch.bfloat16: 32, torch.float32: 16}
+TILE_MAX = {torch.bfloat16: 256, torch.float32: 128}
+TILE_WIDTHS = {dt: tuple(range(TILE_GRANULE[dt], most + 1, TILE_GRANULE[dt]))
+               for dt, most in TILE_MAX.items()}
 
 
 class _TrunkKernel(CudaKernel):
-    """``csrc/trunk.cu``, whose library also counts the bf16 conv kernels
-    it launches (:func:`conv_launches`); :meth:`reset` zeroes those counts
-    too."""
+    """``csrc/trunk.cu``, whose library also counts the conv kernels it
+    launches by dtype and tile width (:func:`conv_launches`); :meth:`reset`
+    zeroes those counts too."""
 
     def reset(self) -> None:
         super().reset()
         if self._lib is not None:
-            self._lib.srcf_conv_bf16_launches_reset()
+            self._lib.srcf_conv_launches_reset()
 
 
 KERNEL = _TrunkKernel("trunk.cu", {**{f"srcf_{n}_{s}": _STAGE12_SIG if n == "fused_stage12"
                                       else _SIG for n in _NAMES for s in _SUFFIX.values()},
-                                   **{f"srcf_conv_{s}": _CONV_SIG for s in _SUFFIX.values()},
+                                   # the f32 conv takes its split weights' scratch too
+                                   "srcf_conv_f32": _CONV_SIG[:-1] + [_P, _P],
+                                   "srcf_conv_bf16": _CONV_SIG,
                                    **{f"srcf_conv_{s}_tile": _CONV_SIG[:-1]
                                       for s in _SUFFIX.values()},
-                                   "srcf_conv_bf16_launches": [_I],
-                                   "srcf_conv_bf16_launches_reset": []})
+                                   **{f"srcf_conv_{s}_launches": [_I] for s in _SUFFIX.values()},
+                                   "srcf_conv_launches_reset": []})
 #: channels in a 16-byte vector, the unit the tensor-core kernels stage
 _VECTOR = {torch.float32: 4, torch.bfloat16: 8}
 
@@ -123,14 +129,16 @@ def launches(name: str) -> int:
     return sum(KERNEL.counts[f"srcf_{name}_{s}"] for s in _SUFFIX.values())
 
 
-def conv_launches() -> dict:
-    """{tile width: launches} of the bf16 conv kernel since the last
+def conv_launches(dtype=torch.bfloat16) -> dict:
+    """{tile width: launches} of the conv kernel of ``dtype`` (bf16
+    ``conv_wgmma_kernel``, f32 ``conv_tf32x3_kernel``) since the last
     ``KERNEL.reset()``, counting each conv the segments launch inside their
     entry points as well as :func:`conv`'s (:func:`launches` counts entry
     point calls); empty before the library is loaded."""
     if KERNEL._lib is None:
         return {}
-    counts = {w: KERNEL._lib.srcf_conv_bf16_launches(w) for w in BF16_TILE_WIDTHS}
+    count = getattr(KERNEL._lib, f"srcf_conv_{_SUFFIX[dtype]}_launches")
+    counts = {w: count(w) for w in TILE_WIDTHS[dtype]}
     return {w: n for w, n in counts.items() if n}
 
 
@@ -364,6 +372,14 @@ def scratch_plan(name, side):
     raise ValueError(f"unknown entry point {name!r}")
 
 
+def split_scratch(name, side):
+    """Elements of the scratch in which the f32 conv kernel keeps its
+    split weights (:func:`split_tf32`) for entry point ``name`` at input
+    side ``side``: hi and lo of its largest conv, as one scratch serves its
+    convs in turn."""
+    return 2 * max(c.k * c.k * c.cin * c.cout for c in conv_plan(name, side))
+
+
 def sub_batch(name, n, side, dtype):
     """Windows per launch of ``name`` over a batch of ``n``: as many as
     keep its :func:`scratch_plan` within :data:`SCRATCH_BUDGET_BYTES`."""
@@ -433,16 +449,34 @@ def conv_plan(name, side):
 def conv_tile_width(cout: int, dtype=torch.bfloat16) -> int:
     """The block tile width (output channels) ``tc_tile`` of
     ``csrc/trunk.cu`` gives a conv of ``cout`` channels that
-    :func:`tensor_core_ok` admits. f32 (``conv_tf32x3_kernel``): 64 or
-    128, whichever pads ``cout`` less, 128 on a tie. bf16
-    (``conv_wgmma_kernel``): the fewest column tiles of at most
-    :data:`BF16_TILE_MAX` channels, each as wide as its share of ``cout``
-    rounded up to :data:`BF16_TILE_GRANULE`, so one tile (the im2col rows
-    staged once) wherever ``cout`` <= 256."""
-    if dtype == torch.float32:
-        return 128 if cout % 128 == 0 or cout % 128 > 64 else 64
-    share = -(-cout // -(-cout // BF16_TILE_MAX))      # ceil(cout / tiles)
-    return -(-share // BF16_TILE_GRANULE) * BF16_TILE_GRANULE
+    :func:`tensor_core_ok` admits, in both dtypes (bf16
+    ``conv_wgmma_kernel``, f32 ``conv_tf32x3_kernel``): the fewest column
+    tiles of at most :data:`TILE_MAX` channels (256, 128), each as wide as
+    its share of ``cout`` rounded up to :data:`TILE_GRANULE` (32, 16), so
+    one tile (the im2col rows staged once) wherever ``cout`` <= that."""
+    most, granule = TILE_MAX[dtype], TILE_GRANULE[dtype]
+    share = -(-cout // -(-cout // most))      # ceil(cout / tiles)
+    return -(-share // granule) * granule
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` of f32 values: 10 mantissa bits, to nearest,
+    ties away from zero, the 13 bits below cleared."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(k):
+    """Plain version of ``conv_tf32x3_kernel_split`` of ``csrc/trunk.cu``,
+    which splits an f32 conv's weights once before the conv kernel reads them:
+    ``k`` ((cin, cout) or HWIO) as its (Kd, cout) matrix, Kd = K*K*cin in
+    the reduction's (ky, kx, cin) order -> (hi, lo), each (cout, Kd):
+    K-major, each output channel's weights one row, as tf32 ``wgmma``
+    reads B. hi = tf32(w), lo = tf32(w - hi), so hi + lo is w within
+    2^-22 of its size (3xTF32: the conv sums lo_a hi_b + hi_a lo_b +
+    hi_a hi_b)."""
+    w = k.reshape(-1, k.shape[-1]).t().contiguous().float()
+    hi = _tf32(w)
+    return hi, _tf32(w - hi)
 
 
 def tensor_core_ok(c: ConvLaunch, dtype=torch.bfloat16) -> bool:
@@ -473,8 +507,11 @@ def _launch(name, out, weights, side, inputs):
     # out again only to work queued later on the same stream, so the
     # kernels still read them safely
     scratch = [out.new_empty((sub,) + s) for s in scratch_plan(name, side)]
+    # the last scratch pointer: the f32 convs' split weights (null in bf16)
+    split = out.new_empty(split_scratch(name, side)) if out.dtype == torch.float32 else None
     wptr = (_P * len(weights))(*[t.data_ptr() for t in weights])
-    sptr = (_P * len(scratch))(*[t.data_ptr() for t in scratch])
+    sptr = (_P * (len(scratch) + 1))(*[t.data_ptr() for t in scratch],
+                                     None if split is None else split.data_ptr())
     fn = f"srcf_{name}_{_SUFFIX[out.dtype]}"
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -563,8 +600,10 @@ def conv(x, k, b, y0, y1=None, stride=1, pad=0):
             y1.copy_(out[..., y0.shape[3]:])
         return y0, y1
     args = _conv_args(x, k, b, y0, y1, stride, pad)
+    # the f32 kernel's split weights (split_tf32), hi and lo
+    split = [x.new_empty(2 * k.numel())] if x.dtype == torch.float32 else []
     with torch.cuda.device(x.device):
-        KERNEL.launch(f"srcf_conv_{_SUFFIX[x.dtype]}", *args,
+        KERNEL.launch(f"srcf_conv_{_SUFFIX[x.dtype]}", *args, *[t.data_ptr() for t in split],
                       torch.cuda.current_stream(x.device).cuda_stream)
     return y0, y1
 

@@ -361,37 +361,55 @@ PLANS = [("fused_stage12", 256), ("trunk_s23", 128), ("trunk_s3", 32), ("trunk_s
 PLAN_CONVS = [(name, c) for name, side in PLANS for c in tf.conv_plan(name, side)]
 
 
-@pytest.mark.parametrize("name,c", PLAN_CONVS, ids=[f"{n}-{c.layer}" for n, c in PLAN_CONVS])
-def test_conv_tile_width_on_plan(name, c):
-    """The bf16 rule (conv_tile_width, tc_tile of csrc/trunk.cu) gives each
-    conv of the plans the fewest column tiles of at most 256 channels, one
-    wherever cout <= 256, at a width that is a multiple of 32 channels (half
-    a B box) and covers its share of cout; the f32 rule still gives the one
-    of 64 and 128 that pads cout less, 128 on a tie."""
-    w = tf.conv_tile_width(c.cout)
+#: each conv of the plans in each dtype (the bf16 cases keep their first ids)
+PLAN_TILE_CASES = ([pytest.param(BF16, n, c, id=f"{n}-{c.layer}") for n, c in PLAN_CONVS]
+                   + [pytest.param(F32, n, c, id=f"f32-{n}-{c.layer}") for n, c in PLAN_CONVS])
+
+
+@pytest.mark.parametrize("dtype,name,c", PLAN_TILE_CASES)
+def test_conv_tile_width_on_plan(dtype, name, c):
+    """The rule (conv_tile_width, tc_tile of csrc/trunk.cu) gives each conv
+    of the plans the fewest column tiles of at most 256 channels in bf16
+    (conv_wgmma_kernel), 128 in f32 (conv_tf32x3_kernel, whose consumers
+    hold the sum and the slice's partial), one wherever cout is at most
+    that, at a width that is a multiple of the dtype's granule (32 in bf16,
+    half a B box; 16 in f32) and covers its share of cout."""
+    most, granule = {BF16: (256, 32), F32: (128, 16)}[dtype]
+    assert (tf.TILE_MAX[dtype], tf.TILE_GRANULE[dtype]) == (most, granule)
+    w = tf.conv_tile_width(c.cout, dtype)
     tiles = -(-c.cout // w)
-    assert 0 < w <= tf.BF16_TILE_MAX == 256 and w % tf.BF16_TILE_GRANULE == 0
-    assert tiles == -(-c.cout // 256) and (tiles == 1) == (c.cout <= 256)
-    assert w - tf.BF16_TILE_GRANULE < -(-c.cout // tiles) <= w
-    pads = {t: -(-c.cout // t) * t - c.cout for t in (64, 128)}
-    assert tf.conv_tile_width(c.cout, F32) == (128 if pads[128] <= pads[64] else 64)
+    assert 0 < w <= most and w % granule == 0 and w in tf.TILE_WIDTHS[dtype]
+    assert tiles == -(-c.cout // most) and (tiles == 1) == (c.cout <= most)
+    assert w - granule < -(-c.cout // tiles) <= w
 
 
 @pytest.mark.parametrize("name,side", PLANS)
 def test_conv_tile_width_pads_less_than_64_128(name, side):
-    """Summed over a plan, the bf16 tiles compute no more padded MACs than
-    the 64/128 rule's did (and the f32 rule's still do)."""
+    """Summed over a plan, the tiles of both dtypes compute no more padded
+    MACs than the 64/128 rule's (the one of 64 and 128 that pads cout
+    less, 128 on a tie)."""
     def padded(width):
         return sum(c.side ** 2 * c.k ** 2 * c.cin * -(-c.cout // width(c.cout)) * width(c.cout)
                    for c in tf.conv_plan(name, side))
     real = padded(lambda cout: cout)
-    new, old = padded(tf.conv_tile_width), padded(lambda cout: tf.conv_tile_width(cout, F32))
-    assert real <= new <= old
+    old = padded(lambda cout: 128 if cout % 128 == 0 or cout % 128 > 64 else 64)
+    for dtype in (BF16, F32):
+        assert real <= padded(lambda cout: tf.conv_tile_width(cout, dtype)) <= old
+
+
+@pytest.mark.parametrize("name,side", PLANS)
+def test_split_scratch_holds_each_conv(name, side):
+    """split_scratch gives an entry point room for hi and lo of each of its
+    f32 convs' weights, and no more than those of its largest: 5.3 MB at
+    most (trunk_s45's inception5b.branch2, 3 x 3 x 192 x 384)."""
+    sizes = [c.k * c.k * c.cin * c.cout for c in tf.conv_plan(name, side)]
+    assert tf.split_scratch(name, side) == 2 * max(sizes)
+    assert tf.split_scratch(name, side) * 4 <= 2 * 3 * 3 * 192 * 384 * 4 < 5.4e6
 
 
 @pytest.mark.parametrize("dtype,cin,x_off,shift,cout,ok", [
-    (F32, 8, 0, 0, 16, True),      # the rule met (the 64-wide tile pads 16 channels less)
-    (F32, 8, 0, 0, 208, True),     # met (208 = 128 + 80: the 128-wide tile pads less)
+    (F32, 8, 0, 0, 16, True),      # the rule met (one 16-wide tile)
+    (F32, 8, 0, 0, 208, True),     # met (208: two tiles of 112)
     (F32, 6, 0, 0, 16, False),     # 6 channels: a vector of 4 would cross a tap
     (F32, 8, 2, 0, 16, False),     # channel offset 2: the vectors lie off 16 bytes
     (F32, 8, 0, 1, 16, False),     # the map 4 bytes off 16-byte alignment

@@ -4,8 +4,10 @@ on the CPU, where the kernel cannot run.
 
 The kernel rounds each f32 operand v to hi = tf32(v) and lo = tf32(v - hi)
 (``cvt.rna.tf32.f32``: 10 mantissa bits, to nearest, ties away from zero,
-the 13 bits below cleared) and accumulates lo_a hi_b, hi_a lo_b and hi_a
-hi_b: 3xTF32. Each wgmma of depth 8 adds its products to its accumulator
+the 13 bits below cleared; the weights once a conv, by
+``conv_tf32x3_kernel_split``, whose plain version is ``trunk_fuse.split_tf32``,
+the im2col rows of A in each consumer's registers) and accumulates lo_a
+hi_b, hi_a lo_b and hi_a hi_b: 3xTF32. Each wgmma of depth 8 adds its products to its accumulator
 rounding toward zero; each 32-deep slice of the reduction (4 k8 steps, 12
 wgmma) sums into a partial of its own, and the partials are added into
 the f32 sum rounding to nearest. Here numpy emulates that on the f32 bit
@@ -21,7 +23,9 @@ exactly in f64) and added to the accumulator toward zero in f32:
   wgmma, misses 1e-5 on inception4e.branch2 (K = 1440), as it did on the
   card, where the partials hold;
 - the segments replayed in the kernel's order with the emulated convs
-  stay within 1e-5 of the JAX package's f32 stages.
+  stay within 1e-5 of the JAX package's f32 stages;
+- ``trunk_fuse.split_tf32`` splits the weights as this emulation does, each
+  output channel's weights one K-major row.
 
 The emulation lives here only; the port's CPU path runs the plain convs.
 """
@@ -185,6 +189,30 @@ def test_tf32_rounds_to_nearest_ties_away():
     assert ((hi.view(np.uint32) & 0x1FFF) == 0).all() and ((lo.view(np.uint32) & 0x1FFF) == 0).all()
     assert (np.abs(hi.astype(np.float64) + lo - v) <= 2.0 ** -22 * np.abs(v)).all()
     assert (np.abs(hi.astype(np.float64) - v) > 2.0 ** -22 * np.abs(v)).any()
+
+
+@pytest.mark.parametrize("shape", [(480, 304), (3, 3, 16, 48), (3, 3, 192, 384)],
+                         ids=["1x1", "3x3-narrow", "3x3-largest"])
+def test_weight_split_is_k_major_hi_lo(shape):
+    """trunk_fuse.split_tf32, the plain version of the kernel's weight
+    split: hi and lo of each weight as this file's tf32 gives them, both
+    with their low 13 bits clear, hi + lo within 2^-22 of the weight, laid
+    out (cout, Kd) with output channel n's weights in row n in the
+    reduction's (ky, kx, cin) order (K-major)."""
+    rng = np.random.default_rng(sum(shape))
+    w = (rng.normal(size=shape) * np.exp(rng.normal(size=shape) * 4)).astype(np.float32)
+    hi, lo = (t.numpy() for t in tf.split_tf32(torch.from_numpy(w)))
+    cout, kd = shape[-1], int(np.prod(shape[:-1]))
+    assert hi.shape == lo.shape == (cout, kd) and hi.flags.c_contiguous
+    wt = w.reshape(kd, cout).T
+    np.testing.assert_array_equal(hi.view(np.uint32), tf32(wt).view(np.uint32))
+    np.testing.assert_array_equal(lo.view(np.uint32), tf32(wt - tf32(wt)).view(np.uint32))
+    assert ((hi.view(np.uint32) & 0x1FFF) == 0).all() and ((lo.view(np.uint32) & 0x1FFF) == 0).all()
+    assert (np.abs(hi.astype(np.float64) + lo - wt) <= 2.0 ** -22 * np.abs(wt)).all()
+    if len(shape) == 4:                     # weight (ky, kx, ci, n) at row n, column (ky, kx, ci)
+        k, cin = shape[0], shape[2]
+        for ky, kx, ci, n in ((0, 0, 0, 0), (2, 1, cin - 1, cout - 1), (1, 2, 3, 5)):
+            assert hi[n, (ky * k + kx) * cin + ci] == tf32(w[ky, kx, ci, n])
 
 
 def _conv_3xtf32(x, k, b, y0, y1=None, stride=1, pad=0):
