@@ -15,6 +15,10 @@ k-means++ seeds in place of MiniBatchKMeans. The seeds come from a
 ``torch.Generator`` seeded by ``seed``: torch cannot reproduce
 ``jax.random.gumbel``, so the same seed draws other seeds than the JAX
 package does; ``init_index`` passes seeds in explicitly.
+
+Spans (:mod:`srcfinder_torch.trace`): "cmf.pca" (the projection) and
+"cmf.kmeans" (the seeds and Lloyd's iterations), each through its
+kernels, its card synchronised on exit.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import math
 import torch
 
 from ..ops.moments import masked_moments
+from ..trace import DeviceSpan
 
 __all__ = ["masked_pca_project", "kmeans_columns", "kpp_uniforms"]
 
@@ -34,12 +39,13 @@ def masked_pca_project(x, m, pcadim: int):
     x: (L, C, B) data (invalid rows already zeroed), m: (L, C) mask.
     Returns z: (L, C, pcadim).
     """
-    m = m.to(x.dtype)
-    _, mu, S = masked_moments(x, m)
-    _, V = torch.linalg.eigh(S)                         # ascending eigenvalues
-    Vtop = V.flip(-1)[:, :, :pcadim]                    # (C, B, P) descending
-    xc = (x - mu[None, :, :]) * m[:, :, None]
-    return torch.bmm(xc.permute(1, 0, 2), Vtop).permute(1, 0, 2)
+    with DeviceSpan("cmf.pca", x.device):
+        m = m.to(x.dtype)
+        _, mu, S = masked_moments(x, m)
+        _, V = torch.linalg.eigh(S)                     # ascending eigenvalues
+        Vtop = V.flip(-1)[:, :, :pcadim]                # (C, B, P) descending
+        xc = (x - mu[None, :, :]) * m[:, :, None]
+        return torch.bmm(xc.permute(1, 0, 2), Vtop).permute(1, 0, 2)
 
 
 def _take_rows(z, idx):
@@ -100,18 +106,19 @@ def kmeans_columns(z, m, k: int, iters: int = 25, seed: int = 0, init_index=None
     on z's device. A cluster left empty keeps its old centroid. Returns
     labels (L, C) int32 (arbitrary where ~m) and centroids (C, k, P).
     """
-    m = m.to(z.dtype)
-    if init_index is None:
-        if uniforms is None:
-            uniforms = kpp_uniforms(z.shape[0], z.shape[1], k, seed, z.dtype, z.device)
-        init_index = _kpp_init(z, m, k, uniforms)
-    cent = _take_rows(z, torch.as_tensor(init_index, device=z.device).long())
-    for _ in range(iters):
-        lab = torch.argmin(_sq_dist(z, cent), dim=2)                # (L, C)
-        onehot = torch.nn.functional.one_hot(lab, k).to(z.dtype) * m[:, :, None]
-        cnt = onehot.sum(dim=0)                                     # (C, K)
-        sums = torch.einsum("lck,lcp->ckp", onehot, z)              # (C, K, P)
-        newc = sums / torch.clamp(cnt, min=1.0)[:, :, None]
-        cent = torch.where((cnt > 0)[:, :, None], newc, cent)
-    labels = torch.argmin(_sq_dist(z, cent), dim=2).to(torch.int32)
-    return labels, cent
+    with DeviceSpan("cmf.kmeans", z.device):
+        m = m.to(z.dtype)
+        if init_index is None:
+            if uniforms is None:
+                uniforms = kpp_uniforms(z.shape[0], z.shape[1], k, seed, z.dtype, z.device)
+            init_index = _kpp_init(z, m, k, uniforms)
+        cent = _take_rows(z, torch.as_tensor(init_index, device=z.device).long())
+        for _ in range(iters):
+            lab = torch.argmin(_sq_dist(z, cent), dim=2)            # (L, C)
+            onehot = torch.nn.functional.one_hot(lab, k).to(z.dtype) * m[:, :, None]
+            cnt = onehot.sum(dim=0)                                 # (C, K)
+            sums = torch.einsum("lck,lcp->ckp", onehot, z)          # (C, K, P)
+            newc = sums / torch.clamp(cnt, min=1.0)[:, :, None]
+            cent = torch.where((cnt > 0)[:, :, None], newc, cent)
+        labels = torch.argmin(_sq_dist(z, cent), dim=2).to(torch.int32)
+        return labels, cent

@@ -32,6 +32,7 @@ import torch
 
 from ..ops.loo import loo_sweep
 from ..ops.moments import masked_moments
+from ..trace import DeviceSpan
 
 __all__ = [
     "PPM_SCALING", "ACTIVE_RANGES", "default_alphas", "valid_mask",
@@ -232,7 +233,8 @@ def matched_filter_columns_multimodal(x, m, abscf, alphas, bgmodes: int,
                                       model: str = "looshrinkage",
                                       reflectance: bool = False,
                                       kmeans_iters: int = 25, seed: int = 0,
-                                      init_index=None, uniforms=None) -> MFMultimodalResult:
+                                      init_index=None, uniforms=None,
+                                      columns=None) -> MFMultimodalResult:
     """Multimodal background MF: PCA + k-means partitions of each column,
     one covariance model per (column, mode) (reference:
     robust_mf.py:306-397). ``init_index`` (C, K) seeds k-means with those
@@ -246,6 +248,14 @@ def matched_filter_columns_multimodal(x, m, abscf, alphas, bgmodes: int,
     column's valid count (robust_mf.py:355-356) while its moments come
     from the mode's rows. ``regfull`` shrinks toward the full column's
     covariance (robust_mf.py:353-356).
+
+    Spans (:mod:`srcfinder_torch.trace`): "cmf.pca" and "cmf.kmeans"
+    (:mod:`.kmeans`), then one "cmf.mode" per mode (its fit through its
+    kernels), counting ``rows``, the mode's valid rows, and ``rejected``,
+    the columns that reject it; each synchronises its card on exit.
+    ``columns``: how many leading columns are the caller's own, the rest
+    being zero padding (:func:`.pipeline.robust_mf_image`'s last chunk)
+    that the counts leave out; None: every column.
 
     Recorded deviations from the reference, as in the JAX package: mode 0
     can be rejected like any other (the reference flips label signs and
@@ -273,6 +283,8 @@ def matched_filter_columns_multimodal(x, m, abscf, alphas, bgmodes: int,
     cnt = onehot.sum(dim=0)                                     # (C, K)
     rej = (cnt < bgminsamp) if reject else torch.zeros_like(cnt, dtype=torch.bool)
     rej = rej & ~rej.all(dim=1)[:, None]
+    own = slice(None, columns)
+    rows, rejected = torch.stack([cnt[own].sum(dim=0), rej[own].sum(dim=0).to(dt)]).tolist()
 
     Tfull = masked_moments(x, m)[2] if regfull else None
     n_full = m.sum(dim=0)                                       # the reference's nuse
@@ -282,14 +294,16 @@ def matched_filter_columns_multimodal(x, m, abscf, alphas, bgmodes: int,
     valid = torch.zeros_like(mbool)
     conds = []
     for k in range(bgmodes):
-        mask_k = mbool & (labels == k)
-        res_k = matched_filter_columns(x, mask_k.to(dt), abscf, alphas, model=model,
-                                       reflectance=reflectance, T=Tfull, n_loo=n_full)
-        use_k = mask_k & ~rej[:, k][None, :]
-        mf = torch.where(use_k, res_k.mf, mf)
-        alpha_pix = torch.where(use_k, res_k.alpha_index.to(torch.int32)[None, :], alpha_pix)
-        valid = valid | use_k
-        conds.append(res_k.cond)
+        with DeviceSpan("cmf.mode", x.device, rows=int(rows[k]), rejected=int(rejected[k])):
+            mask_k = mbool & (labels == k)
+            res_k = matched_filter_columns(x, mask_k.to(dt), abscf, alphas, model=model,
+                                           reflectance=reflectance, T=Tfull, n_loo=n_full)
+            use_k = mask_k & ~rej[:, k][None, :]
+            mf = torch.where(use_k, res_k.mf, mf)
+            alpha_pix = torch.where(use_k, res_k.alpha_index.to(torch.int32)[None, :],
+                                    alpha_pix)
+            valid = valid | use_k
+            conds.append(res_k.cond)
     return MFMultimodalResult(mf=mf, valid=valid, labels=labels, alpha_pix=alpha_pix,
                               rejected=rej, cond=torch.stack(conds, dim=1), counts=cnt)
 

@@ -14,9 +14,10 @@ While ``torch.profiler`` records, a span also enters
 Otherwise it enters nothing (``record_function`` costs ~14 us even with no
 profiler on): two clock reads and an append.
 
-:class:`Stage` is a span for a stage of a pipeline: it announces itself on a
-progress callback, synchronises its card on exit, so that its clock covers
-its kernels, and records its seconds into a ``timers`` dict.
+:class:`DeviceSpan` is a span that synchronises its card on a clean exit,
+so that its clock covers the kernels queued inside it. :class:`Stage` is
+such a span for a stage of a pipeline: it also announces itself on a
+progress callback and records its seconds into a ``timers`` dict.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from collections import deque
 
 import torch
 
-__all__ = ["LOG_SIZE", "Span", "Stage", "span", "spans"]
+__all__ = ["LOG_SIZE", "DeviceSpan", "Span", "Stage", "span", "spans"]
 
 #: Finished spans kept in the log, the oldest dropped first (a flightline
 #: through ``run_flightline`` records about 30).
@@ -100,16 +101,36 @@ class Span:
                 f"trace={self.trace_id}, counts={self.counts})")
 
 
-class Stage(Span):
+class DeviceSpan(Span):
+    """A span whose ``device`` (a CUDA device; anything else is not
+    waited on) is synchronised on a clean exit, before the span's end is
+    stamped."""
+
+    __slots__ = ("device",)
+
+    def __init__(self, name: str, device=None, **counts):
+        super().__init__(name, **counts)
+        self.device = device
+
+    def _sync(self, exc_type):
+        if exc_type is None and self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def __exit__(self, *exc):
+        self._sync(exc[0])
+        return super().__exit__(*exc)
+
+
+class Stage(DeviceSpan):
     """A stage: "[STAGE] name" on ``progress`` once open, its card
     synchronised on a clean exit, ``timers[name]`` set to its seconds and
     "[STAGE] name done in S s" on ``progress`` before it closes."""
 
-    __slots__ = ("timers", "progress", "device")
+    __slots__ = ("timers", "progress")
 
     def __init__(self, name: str, timers: dict, progress, device=None):
-        super().__init__(name)
-        self.timers, self.progress, self.device = timers, progress, device
+        super().__init__(name, device)
+        self.timers, self.progress = timers, progress
 
     def __enter__(self):
         super().__enter__()
@@ -117,8 +138,7 @@ class Stage(Span):
         return self
 
     def __exit__(self, *exc):
-        if exc[0] is None and self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync(exc[0])
         self.end_ns = time.time_ns()
         self.timers[self.name] = self.seconds
         try:

@@ -407,3 +407,117 @@ def test_pipeline_cli_bgmodes_fused_equals_unfused(tmp_path, rng):
     fused = tenvi.open_envi(str(tmp_path / "fused" / name))
     assert "bgmodel=multimodal" in ",".join(fused.metadata["model parameters"])
     np.testing.assert_array_equal(fused.load(), tenvi.open_envi(prods["cmf"]).load())
+
+
+# ------------------------------------------------------------------ spans
+SMALL_MODE_COLUMNS = (1, 4)
+
+
+def _small_mode_flightline(tmp_path, rng):
+    """Two background modes in every column of a 240 x 5 scene (the first
+    100 lines raised by 8), except the columns SMALL_MODE_COLUMNS, where
+    only the first 20 are: a mode under ``int((B - 1) * 1.2)`` = 85 rows,
+    which ``reject`` rejects."""
+    infile, libf, x, _ = _write_flightline(tmp_path, rng, L=240, C=5)
+    x = x.copy()
+    for c in range(x.shape[1]):
+        x[: 20 if c in SMALL_MODE_COLUMNS else 100, c] += 8.0
+    tenvi.save_envi(infile + ".hdr", x, metadata=tenvi.open_envi(infile).metadata,
+                    interleave="bil", force=True)
+    return infile, libf
+
+
+def _image_spans(run):
+    """The spans of the product ``run()`` makes: its ``cmf.image`` root's
+    trace, by name, and the root."""
+    from srcfinder_torch import trace
+    run()
+    root = trace.spans()[-1]
+    assert root.name == "cmf.image" and root.parent_id is None
+    by = {}
+    for s in trace.spans(root.trace_id):
+        by.setdefault(s.name, []).append(s)
+    return by, root
+
+
+@pytest.fixture
+def small_mode_spans(tmp_path, rng):
+    """col_chunk 3 over 5 columns: the second chunk holds one zero column
+    of padding, which the mode counts must leave out."""
+    infile, libf = _small_mode_flightline(tmp_path, rng)
+    out = str(tmp_path / "mm")
+    by, root = _image_spans(lambda: tpl.robust_mf_image(
+        infile, libf, out, bgmodes=2, reject=True, save_bgmeta=True, col_chunk=3,
+        device="cpu"))
+    m = _np(tmf.valid_mask(torch.from_numpy(_image(infile)[:, :, 350:422])))
+    return by, root, m, _image(out + "_bgmeta")[..., 0]
+
+
+def _chunk_children(by, chunk):
+    return sorted((s for v in by.values() for s in v if s.parent_id == chunk.span_id),
+                  key=lambda s: s.start_ns)
+
+
+def test_multimodal_spans_nest_under_the_chunk_and_the_image(small_mode_spans):
+    by, root, _, _ = small_mode_spans
+    chunks = by["cmf.chunk"]
+    assert len(chunks) == 2 and all(c.parent_id == root.span_id for c in chunks)
+    for chunk in chunks:
+        got = _chunk_children(by, chunk)
+        assert [s.name for s in got] == ["cmf.pca", "cmf.kmeans", "cmf.mode", "cmf.mode"]
+        for s in got:
+            assert chunk.start_ns <= s.start_ns <= s.end_ns <= chunk.end_ns
+    assert {k for k, v in by.items() if v[0].parent_id == root.span_id} == {
+        "cmf.read", "cmf.h2d", "cmf.chunk", "cmf.stats", "cmf.write"}
+    assert "cmf.f64" not in by
+    assert all(by[k][0].counts == {} for k in ("cmf.image", "cmf.pca", "cmf.kmeans"))
+
+
+def test_mode_rows_sum_to_the_columns_valid_counts(small_mode_spans):
+    """Each mode's ``rows`` is its labelled valid pixels in the chunk's own
+    columns; the modes' rows sum to those columns' valid counts."""
+    by, _, m, labels = small_mode_spans
+    for chunk, (c0, c1) in zip(by["cmf.chunk"], ((0, 3), (3, 5))):
+        modes = [s for s in _chunk_children(by, chunk) if s.name == "cmf.mode"]
+        rows = [s.counts["rows"] for s in modes]
+        assert sum(rows) == int(m[:, c0:c1].sum())
+        assert rows == [int((m[:, c0:c1] & (labels[:, c0:c1] == k)).sum()) for k in (0, 1)]
+
+
+def test_mode_rejected_counts_the_columns_that_reject_it(small_mode_spans):
+    by, _, m, labels = small_mode_spans
+    for chunk, (c0, c1) in zip(by["cmf.chunk"], ((0, 3), (3, 5))):
+        modes = [s for s in _chunk_children(by, chunk) if s.name == "cmf.mode"]
+        want = [sum(int((m[:, c] & (labels[:, c] == k)).sum()) < 85 for c in range(c0, c1))
+                for k in (0, 1)]
+        assert [s.counts["rejected"] for s in modes] == want
+        assert sum(want) == sum(c0 <= c < c1 for c in SMALL_MODE_COLUMNS)
+
+
+def test_f64_span_counts_the_gated_columns(tmp_path, rng):
+    """The f32 gate's recompute is one ``cmf.f64`` span a chunk that needs
+    it, under the chunk, counting its columns, with the f64 path's own
+    PCA, k-means and mode spans inside it."""
+    infile, libf = _two_mode_flightline(tmp_path, rng, rank4=(1, 4))
+    got = {}
+    by, root = _image_spans(lambda: got.update(tpl.robust_mf_image(
+        infile, libf, str(tmp_path / "g"), col_chunk=3, bgmodes=2, pcadim=4,
+        dtype=np.float32, device="cpu")))
+    f64 = by["cmf.f64"]
+    assert got["f64_columns"] >= 2
+    assert sum(s.counts["columns"] for s in f64) == got["f64_columns"]
+    chunks = {c.span_id for c in by["cmf.chunk"]}
+    assert all(s.parent_id in chunks for s in f64)
+    for s in f64:
+        inner = [t.name for v in by.values() for t in v if t.parent_id == s.span_id]
+        assert sorted(inner) == ["cmf.kmeans", "cmf.mode", "cmf.mode", "cmf.pca"]
+
+
+def test_unimodal_path_adds_only_the_image_span(tmp_path, rng):
+    infile, libf, _, _ = _write_flightline(tmp_path, rng, L=64, C=5)
+    by, root = _image_spans(lambda: tpl.robust_mf_image(
+        infile, libf, str(tmp_path / "u"), col_chunk=3, device="cpu"))
+    assert set(by) == {"cmf.image", "cmf.read", "cmf.h2d", "cmf.chunk", "cmf.stats",
+                       "cmf.write"}
+    assert all(s.parent_id == root.span_id for k, v in by.items() if k != "cmf.image"
+               for s in v)

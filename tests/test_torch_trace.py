@@ -178,6 +178,30 @@ def test_stage_announces_times_and_closes(fails):
     assert [s.name for s in trace.spans(run.trace_id)] == ["cmf.read", "cmf", "run"]
 
 
+@pytest.mark.parametrize("device,fails,waits", [
+    ("cuda", False, True), ("cuda", True, False), ("cpu", False, False), (None, False, False)])
+def test_device_span_waits_for_its_card_before_it_ends(monkeypatch, device, fails, waits):
+    """A ``DeviceSpan`` on a CUDA device synchronises that device on a clean
+    exit, before its end is stamped; on the CPU, with no device or when it
+    fails it waits for nothing."""
+    dev = None if device is None else torch.device(device, 0)
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d: synced.append((d, time.time_ns())))
+    try:
+        with trace.DeviceSpan("cmf.mode", dev, rows=3) as s:
+            if fails:
+                raise RuntimeError("fit failed")
+    except RuntimeError:
+        assert fails
+    assert trace.spans()[-1] is s and s.counts == {"rows": 3}
+    if waits:
+        ((d, at),) = synced
+        assert d == dev and s.start_ns <= at <= s.end_ns
+    else:
+        assert synced == []
+
+
 def test_prefetcher_reader_spans_nest_in_the_callers_span():
     """The block reader's thread runs in a copy of the caller's context: a
     span its ``read_fn`` opens is a child of the span open around the loop,
