@@ -45,7 +45,12 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
    sums must pick the plain version's alpha on every column (or a
    minimum within TOL of it). Then both at small shapes off that path
    (ODD_SHAPES: 82 and 415 bands, unaligned rows, one line) in both
-   dtypes. Prints the eigensolve's time and one {"kernels": [...]} line.
+   dtypes. Then the batched eigensolve kernel (csrc/syevj.cu) on the
+   chunk's 256 correlation matrices and on random ones, in both dtypes
+   (eigh_probe: errors against float64 eigh and the plain version, sweep
+   counts, repeats bit-identical, ms beside torch.linalg.eigh's and the
+   plain version's). Prints the chunk's times and one {"kernels": [...]}
+   line.
 3a. The masks' dilation kernel (phase_morph, "morph" line;
    srcfinder_torch/ops/csrc/morph.cu, which replaces no TPU kernel) at the
    masks cell's shapes: a 554 x 598 mask block by disk(49) and a 2801 x 598
@@ -79,7 +84,8 @@ needs one CUDA device and the CUDA toolkit (nvcc). Phases:
 4b. The multimodal CMF ("multimodal" line): the same recipe with two
    background modes (the first half of the lines raised by MODE_OFFSET),
    through run_flightline(bgmodes=2) with IME, its K1/K2 launches counted
-   from zero (with eigh calls and f64-gated columns, per chunk); then
+   from zero (with the eigensolve's launches and f64-gated columns, per
+   chunk); then
    srcfinder_torch.cmf.cli -k 3 -r -f -m in a process of its own, and the
    bgmodes=2 CMF in float64 on the card with its labels. The labels must
    find the two modes (agreement > LABEL_AGREEMENT up to a swap in every
@@ -657,26 +663,66 @@ def device_kernel_launches(fn):
 
 
 def eigh_probe(Rw, gen):
-    """torch.linalg.eigh over one chunk's 256 correlation matrices: time
-    and device kernels per matrix, on the CMF's own matrices and on
-    random correlation matrices with a spread spectrum, and the same
-    256 matrices in a Python loop of single calls. cuSOLVER's Jacobi
-    iterates until it converges, so its work depends on the spectrum."""
+    """The batched eigensolve kernel (ops/eigh.py + csrc/syevj.cu) over one
+    chunk's 256 correlation matrices, on the CMF's own matrices and on
+    random correlation matrices with a spread spectrum: its ms a call
+    beside torch.linalg.eigh's (cuSOLVER's batched Jacobi, the yardstick
+    ``library_ms``, with its device kernels a matrix) and the plain
+    version's (``plain_ms``), its bound (9 B^3 operations a matrix at the
+    dtype's peak, or its bytes in and out), its sweep counts and the
+    launches the probe made.
+    Its eigenvalues must lie within B eps ||M|| of float64 eigh's and of
+    the plain version's, V diag(lam) V^T within B eps ||M|| of M, V^T V
+    within B eps of I, and two launches must be bit-identical. Returns
+    the line's dict."""
+    import collections
     import torch
+    from srcfinder_torch.ops import eigh
     Cn, Bn, _ = Rw.shape
+    dname = "float64" if Rw.dtype == torch.float64 else "float32"
+    eps = torch.finfo(Rw.dtype).eps
     A = torch.randn(Cn, Bn, Bn, generator=gen, device="cuda", dtype=Rw.dtype)
     S = A @ A.transpose(1, 2) + 1e-2 * torch.eye(Bn, device="cuda", dtype=Rw.dtype)
     dd = torch.sqrt(torch.diagonal(S, dim1=1, dim2=2))
     Rr = S / (dd[:, :, None] * dd[:, None, :])
+    eye = torch.eye(Bn, device="cuda", dtype=torch.float64)
     out = {}
-    for tag, M in (("cmf", Rw), ("random", Rr)):
-        lam = torch.linalg.eigvalsh(M.double())
-        out[tag] = dict(ms=cuda_ms(lambda: torch.linalg.eigh(M), reps=3),
-                        kernels_per_matrix=device_kernel_launches(
-                            lambda: torch.linalg.eigh(M)) / Cn,
-                        median_cond=(lam[:, 0] / lam[:, -1]).median().item())
-    out["cmf_loop_of_single_calls_ms"] = cuda_ms(
-        lambda: [torch.linalg.eigh(Rw[i]) for i in range(Cn)], reps=1)
+    for tag, M in (("cmf", Rw.contiguous()), ("random", Rr.contiguous())):
+        eigh.reset()
+        lam, V, sweeps = eigh.syevj(M)
+        torch.cuda.synchronize()
+        lr, _, sr = eigh.syevj_ref(M)
+        M64 = M.double()
+        l64 = torch.linalg.eigvalsh(M64)
+        norm = torch.linalg.matrix_norm(M64, ord=2)[:, None]
+        err = dict(
+            lam_vs_f64=((lam.double() - l64).abs() / norm).max().item(),
+            lam_vs_plain=((lam.double() - lr.double()).abs() / norm).max().item(),
+            reconstruction=((V.double() @ torch.diag_embed(lam.double()) @ V.double().mT
+                             - M64).abs().amax(dim=2) / norm).max().item(),
+            orthogonality=(V.double().mT @ V.double() - eye).abs().max().item())
+        for k, v in err.items():
+            if not v <= Bn * eps:
+                fail(f"syevj {dname} {tag}: {k} {v:.3g} > B eps = {Bn * eps:.3g}")
+        if not bit_identical(lambda: eigh.syevj(M)):
+            fail(f"syevj {dname} {tag}: two launches on one input differ")
+        if not (sweeps < eigh.MAX_SWEEPS[Rw.dtype]).all():
+            fail(f"syevj {dname} {tag}: a matrix reached the sweep cap")
+        t_ops = 9 * Bn ** 3 * Cn / PEAK_FLOPS[dname] * 1e3
+        t_bytes = M.element_size() * Cn * (2 * Bn * Bn + Bn) / PEAK_BYTES * 1e3
+        ms = cuda_ms(lambda: eigh.syevj(M))
+        out[tag] = dict(
+            ms=ms, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            share_of_bound=max(t_ops, t_bytes) / ms,
+            plain_ms=cuda_ms(lambda: eigh.syevj_ref(M), reps=1),
+            library_ms=cuda_ms(lambda: torch.linalg.eigh(M), reps=3),
+            library_kernels_per_matrix=device_kernel_launches(
+                lambda: torch.linalg.eigh(M)) / Cn,
+            sweeps=dict(sorted(collections.Counter(sweeps.tolist()).items())),
+            plain_sweeps=dict(sorted(collections.Counter(sr.tolist()).items())),
+            probe_launches=eigh.launches(), probe_library_calls=eigh.library_calls(),
+            median_cond=(l64[:, 0] / l64[:, -1]).median().item(), **err)
     return out
 
 
@@ -849,6 +895,7 @@ def phase_kernels():
             matched_filter_columns=cuda_ms(
                 lambda: mfmod.matched_filter_columns(x, m, abscf, alphas), reps=3))
         results.update(cmf_kernel_checks(name, x, m, Z, inv_glam, beta, parts))
+        results[("syevj", name)] = cmf_ms[name]["eigh"]
         if dtype == torch.float64:
             results.update(cmf_kernel_checks(
                 "float64_c8", *c8_inputs(x, m, Z, inv_glam, beta, parts)))
@@ -1235,7 +1282,7 @@ def phase_main_path(workdir):
     import torch
     from srcfinder_torch.core.envi import open_envi
     from srcfinder_torch.flow.pipeline_cli import run_flightline
-    from srcfinder_torch.ops import loo, moments
+    from srcfinder_torch.ops import eigh, loo, moments
 
     gen = torch.Generator(device="cuda").manual_seed(2801)
     t0 = time.time()
@@ -1247,6 +1294,7 @@ def phase_main_path(workdir):
     torch.cuda.reset_peak_memory_stats()
     moments.KERNEL.reset()
     loo.KERNEL.reset()
+    eigh.reset()
     t0 = time.time()
     prods = run_flightline(rdn, libf, wf, os.path.join(workdir, "out"),
                            prob_thr=0.0, do_ime=True, device="cuda",
@@ -1254,8 +1302,10 @@ def phase_main_path(workdir):
     torch.cuda.synchronize()
     total_s = time.time() - t0
     launches = {"masked_moments": moments.KERNEL.launches,
-                "loo_sweep": loo.KERNEL.launches}
+                "loo_sweep": loo.KERNEL.launches, "syevj": eigh.launches()}
     peak = torch.cuda.max_memory_allocated()
+    if eigh.library_calls():
+        fail(f"{eigh.library_calls()} eigensolves of the main path took the library route")
 
     for k, n in launches.items():
         if n <= 0:
@@ -2639,7 +2689,7 @@ def phase_multimodal(workdir, libf, wf):
     from srcfinder_torch.cmf import pipeline as tpl
     from srcfinder_torch.core.envi import open_envi
     from srcfinder_torch.flow.pipeline_cli import run_flightline
-    from srcfinder_torch.ops import loo, moments
+    from srcfinder_torch.ops import eigh, loo, moments
 
     gen = torch.Generator(device="cuda").manual_seed(2802)
     t0 = time.time()
@@ -2648,13 +2698,9 @@ def phase_multimodal(workdir, libf, wf):
     nl, ns, _ = SCENE
     nblocks = -(-ns // C)
 
-    # count eigh calls and the f64 gate's columns during the run
-    calls = {"eigh": 0, "f64_columns": 0}
-    eigh, f64_cols = torch.linalg.eigh, tpl._f64_columns_multimodal
-
-    def count_eigh(*a, **k):
-        calls["eigh"] += 1
-        return eigh(*a, **k)
+    # count the f64 gate's columns during the run
+    calls = {"f64_columns": 0}
+    f64_cols = tpl._f64_columns_multimodal
 
     def count_f64(xblk, cols, *a, **k):
         calls["f64_columns"] += len(cols)
@@ -2664,7 +2710,8 @@ def phase_multimodal(workdir, libf, wf):
     torch.cuda.reset_peak_memory_stats()
     moments.KERNEL.reset()
     loo.KERNEL.reset()
-    torch.linalg.eigh, tpl._f64_columns_multimodal = count_eigh, count_f64
+    eigh.reset()
+    tpl._f64_columns_multimodal = count_f64
     try:
         t0 = time.time()
         prods = run_flightline(rdn, libf, wf, os.path.join(workdir, "out_mm"), prob_thr=0.0,
@@ -2673,9 +2720,12 @@ def phase_multimodal(workdir, libf, wf):
         torch.cuda.synchronize()
         run_s = time.time() - t0
     finally:
-        torch.linalg.eigh, tpl._f64_columns_multimodal = eigh, f64_cols
+        tpl._f64_columns_multimodal = f64_cols
     peak = torch.cuda.max_memory_allocated()
-    launches = {"masked_moments": moments.KERNEL.launches, "loo_sweep": loo.KERNEL.launches}
+    launches = {"masked_moments": moments.KERNEL.launches, "loo_sweep": loo.KERNEL.launches,
+                "syevj": eigh.launches()}
+    if eigh.library_calls():
+        fail(f"{eigh.library_calls()} eigensolves of the multimodal run took the library route")
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the multimodal path")
@@ -2742,7 +2792,7 @@ def phase_multimodal(workdir, libf, wf):
         stage_s=prods["timers"], peak_mem_bytes=peak, launches=launches,
         per_chunk=dict(chunks=nblocks, masked_moments=launches["masked_moments"] / nblocks,
                        loo_sweep=launches["loo_sweep"] / nblocks,
-                       eigh=calls["eigh"] / nblocks),
+                       syevj=launches["syevj"] / nblocks),
         f64_gate_columns=calls["f64_columns"], cli_k3_s=cli_s, cmf_f64_s=f64_s,
         f64_gate_columns_in_f64_run=res64["f64_columns"],
         label_agreement_min=float(agree.min()), f32_vs_f64_rel=float(err),
@@ -4692,8 +4742,8 @@ def main():
     print(json.dumps({"python": sys.version.split()[0], "torch": torch.__version__,
                       "cuda": torch.version.cuda}))
 
-    from srcfinder_torch.ops import build, loo, moments, morph, trunk_fuse
-    built = (moments.KERNEL, loo.KERNEL, trunk_fuse.KERNEL, morph.KERNEL)
+    from srcfinder_torch.ops import build, eigh, loo, moments, morph, trunk_fuse
+    built = (moments.KERNEL, loo.KERNEL, eigh.KERNEL, trunk_fuse.KERNEL, morph.KERNEL)
     t0 = time.time()
     build.build_all(built)
     print(json.dumps({"build_s": time.time() - t0, "ptxas": {
@@ -4827,6 +4877,16 @@ def main():
                         replaces="none (host scipy)", launches=dilate_launches,
                         launches_in="run_flightline do_masks=True (12,000 lines)",
                         config=top, **top_stats, **dict(others)))
+    # the eigensolve: its launches in the main path's flightline and the
+    # multimodal run, its probe on one chunk's matrices (phase 3)
+    kernels.append(dict(name="syevj", route="cuda", source="srcfinder_torch/ops/csrc/syevj.cu",
+                        replaces="none (torch.linalg.eigh's cuSOLVER batched Jacobi; XLA's "
+                                 "eigh in the JAX package)",
+                        launches=launches["syevj"][1], launches_in="run_flightline",
+                        config="float32", **checks[("syevj", "float32")]["cmf"],
+                        float64=checks[("syevj", "float64")]["cmf"],
+                        multimodal=dict(launches=mm_launches["syevj"],
+                                        launches_in="run_flightline bgmodes=2")))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ Port of the JAX package's ``cmf/kmeans.py`` (reference:
 cmf/robust_mf.py:306-332): each column's zero-mean valid spectra are
 projected onto their top ``pcadim`` principal axes, then clustered into
 ``k`` modes by Lloyd's iteration, all columns at once. The moments go
-through the masked-moments kernel (K1) on a card; the rest is plain
-batched torch (``eigh``, ``bmm``, one-hot counts), as XLA ran it for the
-JAX package.
+through the masked-moments kernel (K1) on a card and the eigensolve
+through the batched Jacobi kernel (:func:`~srcfinder_torch.ops.eigh.symeig`);
+the rest is plain batched torch (``bmm``, one-hot counts), as XLA ran it
+for the JAX package.
 
 Recorded deviations, as in the JAX package: the top ``pcadim`` axes by
 descending eigenvalue (the reference slices unordered ``eig`` output,
@@ -27,6 +28,7 @@ import math
 
 import torch
 
+from ..ops.eigh import symeig
 from ..ops.moments import masked_moments
 from ..trace import DeviceSpan
 
@@ -42,7 +44,7 @@ def masked_pca_project(x, m, pcadim: int):
     with DeviceSpan("cmf.pca", x.device):
         m = m.to(x.dtype)
         _, mu, S = masked_moments(x, m)
-        _, V = torch.linalg.eigh(S)                     # ascending eigenvalues
+        _, V = symeig(S)                                # ascending eigenvalues
         Vtop = V.flip(-1)[:, :, :pcadim]                # (C, B, P) descending
         xc = (x - mu[None, :, :]) * m[:, :, None]
         return torch.bmm(xc.permute(1, 0, 2), Vtop).permute(1, 0, 2)

@@ -12,9 +12,10 @@ Covariance Estimator", Proc. SPIE 2012, eq. 29):
 
 so the 201-alpha sweep is elementwise work on eigenvalues plus one
 (L, B) x (B, A) product per column, and the final covariance shares the
-eigenbasis. Two steps are hand-written CUDA kernels on a card
-(:mod:`srcfinder_torch.ops`): the masked moments and the (L, C, A) part
-of the sweep. The whitening and the MF apply are plain batched matmuls.
+eigenbasis. Three steps are hand-written CUDA kernels on a card
+(:mod:`srcfinder_torch.ops`): the masked moments, the batched eigensolve
+(:func:`~srcfinder_torch.ops.eigh.symeig`) and the (L, C, A) part of the
+sweep. The whitening and the MF apply are plain batched matmuls.
 
 Ragged columns (per-column valid-pixel subsets, robust_mf.py:282) are
 handled with mask-weighted moments on fixed shapes. The multimodal
@@ -30,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.eigh import symeig
 from ..ops.loo import loo_sweep
 from ..ops.moments import masked_moments
 from ..trace import DeviceSpan
@@ -107,31 +109,20 @@ def _loo_nll(lam, Z, logdiag, n, m, alphas, nchan):
     return torch.where(glam_ok & q_ok, nll, torch.full_like(nll, math.inf))
 
 
-def _eigh(M):
-    """``torch.linalg.eigh`` of a batch that may hold non-finite matrices
-    (a failed Cholesky of a near-singular f32 target): those get NaN
-    eigenvalues, as the JAX package's eigh gives them, so their columns
-    fail the cond gate instead of raising."""
-    bad = ~torch.isfinite(M).all(dim=2).all(dim=1)
-    if not bad.any():
-        return torch.linalg.eigh(M)
-    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
-    lam, V = torch.linalg.eigh(torch.where(bad[:, None, None], eye, M))
-    return torch.where(bad[:, None], torch.full_like(lam, math.nan), lam), V
-
-
 def _cholesky_whitener(S, T):
     """Whitener for a full shrinkage target T: ``Lc = chol(T + 1e-12 I)``,
     ``M = Lc^-1 S Lc^-T`` symmetrised, ``M = V diag(lam) V^T``. Returns
     (lam, Wmat = Lc^-T V, logdiag = log diag Lc). A target that is not
-    positive definite gives NaN, as in the JAX package."""
+    positive definite gives NaN, as in the JAX package: :func:`symeig`
+    gives such a matrix NaN eigenvalues, so its column fails the cond gate
+    instead of raising."""
     B = S.shape[-1]
     Lc, info = torch.linalg.cholesky_ex(
         T + 1e-12 * torch.eye(B, dtype=S.dtype, device=S.device))
     Lc = torch.where((info != 0)[:, None, None], torch.full_like(Lc, math.nan), Lc)
     LiS = torch.linalg.solve_triangular(Lc, S, upper=False)
     M = torch.linalg.solve_triangular(Lc, LiS.mT, upper=False).mT
-    lam, V = _eigh(0.5 * (M + M.mT))
+    lam, V = symeig(0.5 * (M + M.mT))
     Wmat = torch.linalg.solve_triangular(Lc.mT, V, upper=True)
     logdiag = torch.log(torch.clamp(torch.diagonal(Lc, dim1=1, dim2=2), min=1e-300))
     return lam, Wmat, logdiag
@@ -172,7 +163,7 @@ def matched_filter_columns(x, m, abscf, alphas, model: str = "looshrinkage",
         diag = torch.diagonal(S, dim1=1, dim2=2)                # (C, B)
         d = torch.sqrt(torch.clamp(diag, min=1e-30))            # (C, B)
         Rw = S / (d[:, :, None] * d[:, None, :])
-        lam, V = torch.linalg.eigh(Rw)                          # (C,B),(C,B,B)
+        lam, V = symeig(Rw)                                     # (C,B),(C,B,B)
         Wmat = V / d[:, :, None]                                # D^-1 V
         logdiag = torch.log(torch.clamp(d, min=1e-300))
     else:
